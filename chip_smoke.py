@@ -1,0 +1,431 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (imfnet_tpu_torch) once on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # needs one card; no arguments
+
+Phases, each printed as one JSON line:
+  device    nvidia-smi's name and power limit, torch and CUDA versions
+  build     both CUDA kernels built from imfnet_tpu_torch/csrc (nvcc, in
+            parallel), with seconds and the compiler's register report
+  kernel    kernel A (sparse-conv gather-GEMM) at every conv shape of the
+            main path, on the level sizes of the bench-scale pair, and
+            kernel B (flash NN) on the main path's keypoint descriptors,
+            each against its plain PyTorch version on the same inputs:
+            max error vs the stated tolerance, kernel / plain / library ms
+            (CUDA events) and the roofline bound
+  pipeline  warm-up pairs, then timed pairs through PairRegistrar at bench
+            scale (synthetic_pair(RandomState(0), 200k points), 120x160
+            images, DEFAULT_BUCKETS 2-batch pad, full-width ResUNetBN2C,
+            bf16, 5000 keypoints, 50k hypotheses): pairs/s, per-stage ms,
+            voxel and level counts, and the kernel launches of the timed
+            run, which must be 20 (kernel A) and 2 (kernel B) per pair
+  reference the chain on a small pair, on the card vs on the CPU (the
+            plain versions, which the CPU tests hold to the JAX package):
+            equal tables, descriptors and transform within tolerance
+  profile   torch.profiler over three pairs: device-busy ms per pair, the
+            device's idle share against the unprofiled wall time, kernel
+            launches per pair and the top kernels by device time
+Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+Any failure raises and exits non-zero; so does a machine without CUDA.
+"""
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from imfnet_tpu_torch.data.synthetic import synthetic_pair
+from imfnet_tpu_torch.eval.registration import sample_keypoints_segment
+from imfnet_tpu_torch.match.nn_kernel import flash_nn, nn_plain
+from imfnet_tpu_torch.pipeline import PairRegistrar, bench_config
+from imfnet_tpu_torch.sparse.conv_kernel import gather_gemm, gather_gemm_plain
+from imfnet_tpu_torch.sparse.kernel_map import coarse_levels_fit
+from imfnet_tpu_torch.utils import cuda_build
+
+# H100 SXM published dense peaks (NVIDIA data sheet), used for bounds only
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# The 20 kernel-A convs of one ResUNetIMF forward: (name, level, map, cin,
+# cout). The map of level i gathers from level i (k3_same), i-1 (down) or
+# i+1 (up).
+MAIN_PATH_CONVS = (
+    [("block1", 0, "k3_same", 32, 32)] * 2
+    + [("conv2", 1, "down", 32, 64)] + [("block2", 1, "k3_same", 64, 64)] * 2
+    + [("conv3", 2, "down", 64, 128)] + [("block3", 2, "k3_same", 128, 128)] * 2
+    + [("conv4", 3, "down", 128, 256)] + [("block4", 3, "k3_same", 256, 256)] * 2
+    + [("conv4_tr", 2, "up", 256, 128)] + [("block4_tr", 2, "k3_same", 128, 128)] * 2
+    + [("conv3_tr", 1, "up", 256, 64)] + [("block3_tr", 1, "k3_same", 64, 64)] * 2
+    + [("conv2_tr", 0, "up", 128, 64)] + [("block2_tr", 0, "k3_same", 64, 64)] * 2
+)
+assert len(MAIN_PATH_CONVS) == 20
+
+CONV_TOL_REL = 1e-4   # same exact bf16 products, f32 sums in another order
+NN_D2_ATOL = 1e-4     # f32 d² of O(1) descriptors, sums in another order
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, iters, warmup=2):
+    """Mean device ms per call of fn over `iters` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters):
+    """Mean wall ms per call, each call ending in a device synchronize."""
+    out = None
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters, out
+
+
+def phase_device():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0],
+          "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count()})
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    report = cuda_build.build(["sparse_conv", "flash_nn"])
+    regs = {name: [ln.split("info    : ")[-1] for ln in r["ptxas"].splitlines()
+                   if "registers" in ln or "spill" in ln]
+            for name, r in report.items()}
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+          "per_source_seconds": {k: round(v["seconds"], 3) for k, v in report.items()},
+          "ptxas": regs})
+
+
+def bench_pair(config):
+    pair = synthetic_pair(np.random.RandomState(0), n_points=200_000,
+                          voxel_size=config.voxel_size, extent=1.5,
+                          image_hw=(config.image_H, config.image_W))
+    return pair
+
+
+def conv_inputs(pyr, level, which, cin, cout, gen):
+    nbr = getattr(pyr.levels[level], which)
+    src = {"k3_same": level, "down": level - 1, "up": level + 1}[which]
+    n_in = pyr.levels[src].coords.shape[0]
+    x = torch.randn((n_in, cin), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((27, cin, cout), generator=gen, device="cuda")
+         * (27 * cin) ** -0.5).to(torch.bfloat16)
+    return x, nbr, w
+
+
+def phase_kernel_a(pyr, gen):
+    """Kernel A vs plain at each distinct conv call of the main path."""
+    shapes, seen = [], {}
+    for name, level, which, cin, cout in MAIN_PATH_CONVS:
+        key = (level, which, cin, cout)
+        if key in seen:
+            seen[key]["count"] += 1
+            continue
+        x, nbr, w = conv_inputs(pyr, level, which, cin, cout, gen)
+        out = gather_gemm(x, nbr, w)
+        ref = gather_gemm_plain(x, nbr, w)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        tol = CONV_TOL_REL * max(1.0, float(ref.abs().max()))
+        nnz = int((nbr >= 0).sum())
+        n_out, n_in = nbr.shape[0], x.shape[0]
+        dead = (nbr < 0).all(dim=1)
+        if err > tol or not bool((out[dead] == 0).all()):
+            raise AssertionError(f"kernel A disagrees at {key}: err {err} > {tol} "
+                                 f"or a dead row is not exactly 0")
+        ops_ms = 2.0 * nnz * cin * cout / PEAK_BF16_FLOPS * 1e3
+        bytes_ms = (n_in * cin * 2 + nbr.numel() * 4 + w.numel() * 2
+                    + n_out * cout * 4) / PEAK_BYTES * 1e3
+        entry = {
+            "conv": name, "level": level, "map": which, "cin": cin, "cout": cout,
+            "n_in": n_in, "n_out": n_out, "nnz": nnz, "count": 1,
+            "max_abs_err": err, "tol": tol,
+            "ms": cuda_ms(lambda: gather_gemm(x, nbr, w), 20),
+            "plain_ms": cuda_ms(lambda: gather_gemm_plain(x, nbr, w), 5),
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+        }
+        seen[key] = entry
+        shapes.append(entry)
+    for e in shapes:
+        emit({"phase": "kernel", "kernel": "sparse_conv_gather_gemm", **e})
+    total = lambda k: sum(e[k] * e["count"] for e in shapes)  # noqa: E731
+    ops_ms = sum(e["ops_ms"] * e["count"] for e in shapes)
+    bytes_ms = sum(e["bytes_ms"] * e["count"] for e in shapes)
+    return {
+        "name": "sparse_conv_gather_gemm", "route": "cuda",
+        "source": "imfnet_tpu_torch/csrc/sparse_conv.cu",
+        "replaces": "imfnet_tpu/sparse/pallas_conv.py:318",
+        "also_replaces": ["imfnet_tpu/sparse/pallas_conv.py:485",
+                          "imfnet_tpu/sparse/pallas_conv.py:595"],
+        "unit": "per pair: the 20 convs of one forward",
+        "max_abs_err": max(e["max_abs_err"] for e in shapes),
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+        "library_ms": None,
+    }
+
+
+def phase_kernel_b(kd0, ok0, kd1, ok1, gen):
+    """Kernel B vs plain on the main path's descriptors (both directions),
+    and on Gaussian inputs of the same shape, where indices must be equal."""
+    entries = []
+    n, d = kd0.shape
+    gq = torch.randn((n, d), generator=gen, device="cuda")
+    gr = torch.randn((n, d), generator=gen, device="cuda")
+    gv = torch.rand((n,), generator=gen, device="cuda") > 0.1
+    cases = [("descriptors 0->1", kd0, kd1, ok1), ("descriptors 1->0", kd1, kd0, ok0),
+             ("gaussian d32", gq, gr, gv),
+             ("gaussian d3", gq[:, :3].contiguous(), gr[:, :3].contiguous(), gv)]
+    for name, q, r, v in cases:
+        i_k, d_k = flash_nn(q, r, v)
+        i_p, d_p = nn_plain(q, r, v)
+        torch.cuda.synchronize()
+        err = float((d_k - d_p).abs().max())
+        # the kernel's choice must be a nearest valid ref: its exact (f64)
+        # distance within NN_D2_ATOL of the plain choice's
+        q64, r64 = q.double(), r.double()
+        exact_k = ((q64 - r64[i_k.long()]) ** 2).sum(1)
+        exact_p = ((q64 - r64[i_p.long()]) ** 2).sum(1)
+        choice_gap = float((exact_k - exact_p).abs().max())
+        mismatched = int((i_k != i_p).sum())
+        if err > NN_D2_ATOL or choice_gap > NN_D2_ATOL or not bool(v[i_k.long()].all()):
+            raise AssertionError(f"kernel B disagrees on {name}: d2 err {err}, "
+                                 f"choice gap {choice_gap}")
+        if name.startswith("gaussian") and mismatched:
+            raise AssertionError(f"kernel B: {mismatched} indices differ on {name}")
+        m = r.shape[0]
+        ops = 2.0 * n * m * q.shape[1]
+        nbytes = (q.numel() + r.numel()) * 4 + m + n * 8
+        vmask = ~v
+
+        def library():
+            dist = torch.cdist(q, r)
+            return dist.masked_fill(vmask[None, :], float("inf")).min(dim=1)
+
+        entry = {"case": name, "n": n, "m": m, "d": q.shape[1],
+                 "max_abs_err": err, "tol": NN_D2_ATOL, "choice_gap": choice_gap,
+                 "index_mismatches": mismatched,
+                 "ms": cuda_ms(lambda: flash_nn(q, r, v), 20),
+                 "plain_ms": cuda_ms(lambda: nn_plain(q, r, v), 5),
+                 "library_ms": cuda_ms(library, 5),
+                 "bound_ms": max(ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+                 "bound_by": "operations" if ops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES
+                 else "bytes"}
+        emit({"phase": "kernel", "kernel": "flash_nn", **entry})
+        entries.append(entry)
+    main = entries[:2]
+    return {
+        "name": "flash_nn", "route": "cuda", "source": "imfnet_tpu_torch/csrc/flash_nn.cu",
+        "replaces": "imfnet_tpu/match/pallas_nn.py:54",
+        "unit": "per pair: both NN directions of register_kp",
+        "max_abs_err": max(e["max_abs_err"] for e in entries),
+        "ms": sum(e["ms"] for e in main), "plain_ms": sum(e["plain_ms"] for e in main),
+        "bound_ms": sum(e["bound_ms"] for e in main), "bound_by": main[0]["bound_by"],
+        "library_ms": sum(e["library_ms"] for e in main),
+    }
+
+
+def check_outputs(q, feats, out):
+    n = int(q.sv.num_valid)
+    if not bool(torch.isfinite(feats).all()):
+        raise AssertionError("descriptors are not finite")
+    norms = feats[:n].norm(dim=1)
+    if not bool(((norms - 1).abs() < 1e-3).all()) or bool(feats[n:].any()):
+        raise AssertionError("descriptors are not unit rows with zero padding")
+    T = out["transformation"]
+    R = T[:3, :3].double()
+    if T.shape != (4, 4) or not bool(torch.isfinite(T).all()) or \
+            float((R @ R.T - torch.eye(3, device=R.device, dtype=R.dtype)).abs().max()) > 1e-3:
+        raise AssertionError(f"transformation is not rigid: {T}")
+    for k, v in out.items():
+        if not bool(torch.isfinite(v.float()).all()):
+            raise AssertionError(f"metric {k} is not finite")
+
+
+def phase_pipeline(reg, pair, n_warm=3, n_pairs=30):
+    cfg = reg.config
+    args = (pair.xyz0, pair.xyz1, pair.image0, pair.image1, pair.T_gt, np.eye(6))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(n_warm):
+        reg(*args, generator=gen)
+    torch.cuda.synchronize()
+
+    gather_gemm.launches = 0
+    flash_nn.launches = 0
+    lat = []
+    t0 = time.perf_counter()
+    for _ in range(n_pairs):
+        t = time.perf_counter()
+        out = reg(*args, generator=gen)
+        float(out["rte"])                # the pair's result reaches the host
+        lat.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"sparse_conv_gather_gemm": gather_gemm.launches,
+                "flash_nn": flash_nn.launches}
+    if launches != {"sparse_conv_gather_gemm": 20 * n_pairs, "flash_nn": 2 * n_pairs}:
+        raise AssertionError(f"kernel launches {launches} over {n_pairs} pairs; "
+                             f"want 20 and 2 per pair")
+    # median, and the highest percentile with at least ten samples above it
+    q_hi = (n_pairs - 10) / n_pairs
+    latency = {"median_ms": float(np.median(lat)),
+               f"p{round(100 * q_hi)}_ms": float(np.quantile(lat, q_hi)),
+               "min_ms": min(lat), "max_ms": max(lat), "samples": n_pairs}
+
+    # stage split, each stage ending in a synchronize
+    stages = {}
+    stages["prepare_ms"], pb = host_ms(lambda: reg.prepare(*args[:4]), 5)
+    stages["quantize_ms"], q = host_ms(lambda: reg.quantize(pb), 5)
+    stages["pyramid_ms"], pyr = host_ms(lambda: reg.pyramid(q), 5)
+    stages["forward_ms"], feats = host_ms(lambda: reg.forward(q, pyr, pb.images), 5)
+    stages["match_ms"], out = host_ms(
+        lambda: reg.match(q, feats, pair.T_gt, np.eye(6), generator=gen), 5)
+    check_outputs(q, feats, out)
+    n0 = int(q.n0)
+    emit({"phase": "pipeline", "pairs": n_pairs, "seconds": seconds,
+          "pairs_per_s": n_pairs / seconds, "latency": latency, "stages": stages,
+          "launches": launches,
+          "launches_per_pair": {k: v / n_pairs for k, v in launches.items()},
+          "raw_points": [len(pair.xyz0), len(pair.xyz1)],
+          "voxels_per_fragment": [n0, int(q.sv.num_valid) - n0],
+          "n_pad": q.sv.n_padded,
+          "levels": [{"num_valid": int(lv.num_valid), "capacity": lv.coords.shape[0]}
+                     for lv in pyr.levels],
+          "coarse_levels_fit": bool(coarse_levels_fit(pyr)),
+          "keypoints": cfg.num_rand_keypoints, "hypotheses": cfg.ransac_max_iteration,
+          "metrics": {k: float(v) for k, v in out.items() if v.numel() == 1},
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    return launches, seconds / n_pairs, q, pyr, feats
+
+
+def phase_reference():
+    """The chain on a small pair, card vs CPU, same weights and draws, f32."""
+    cfg = bench_config().replace(compute_dtype="float32", num_rand_keypoints=400,
+                                 ransac_max_iteration=12500)
+    pair = synthetic_pair(np.random.RandomState(2), n_points=6000, image_hw=(24, 32))
+    outs = []
+    for device in ("cuda", "cpu"):
+        reg = PairRegistrar(cfg, device=device, seed=1)
+        pb = reg.prepare(pair.xyz0, pair.xyz1, pair.image0, pair.image1)
+        q = reg.quantize(pb)
+        pyr = reg.pyramid(q)
+        feats = reg.forward(q, pyr, pb.images)
+        n = q.sv.n_padded
+        rs = np.random.RandomState(4)
+        u = tuple(torch.from_numpy(rs.rand(n).astype(np.float32)).to(device)
+                  for _ in range(2))
+        n_valid = min(cfg.num_rand_keypoints, int(q.n0))
+        samples = torch.from_numpy(rs.randint(0, max(n_valid, 1), (1, 12500, 3))).to(device)
+        out = reg.match(q, feats, pair.T_gt, np.eye(6), keypoint_u=u, samples=samples)
+        outs.append((q, pyr, feats, out))
+    (qg, pg, fg, og), (qc, pc, fc, oc) = outs
+    if not torch.equal(qg.sv.coords.cpu(), qc.sv.coords):
+        raise AssertionError("reference: voxel tables differ")
+    for lg, lc in zip(pg.levels, pc.levels):
+        for name in ("coords", "k3_same", "down", "up"):
+            a, b = getattr(lg, name), getattr(lc, name)
+            if (a is None) != (b is None) or (a is not None and not torch.equal(a.cpu(), b)):
+                raise AssertionError(f"reference: level table {name} differs")
+    f_err = float((fg.cpu() - fc).abs().max())
+    t_err = float((og["transformation"].cpu() - oc["transformation"]).abs().max())
+    same_accept = bool(og["accepted"]) == bool(oc["accepted"])
+    emit({"phase": "reference", "voxels": int(qg.sv.num_valid),
+          "descriptor_max_abs_err": f_err, "descriptor_tol": 1e-4,
+          "transform_max_abs_err": t_err, "transform_tol": 1e-3,
+          "accepted": [bool(og["accepted"]), bool(oc["accepted"])]})
+    if f_err > 1e-4 or t_err > 1e-3 or not same_accept:
+        raise AssertionError("reference: card and CPU disagree")
+
+
+def phase_profile(reg, pair, wall_ms_per_pair, n_pairs=3):
+    """Device time by kernel over a few pairs (torch.profiler, CUPTI). The
+    idle share compares the device-busy time per pair with the unprofiled
+    wall time per pair of the pipeline phase."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = (pair.xyz0, pair.xyz1, pair.image0, pair.image1, pair.T_gt, np.eye(6))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_pairs):
+            reg(*args, generator=gen)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("profile: the trace holds no device kernels")
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / n_pairs
+    top = sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:15]
+    emit({"phase": "profile", "pairs": n_pairs,
+          "device_busy_ms_per_pair": busy_ms,
+          "wall_ms_per_pair_unprofiled": wall_ms_per_pair,
+          "device_idle_share": 1 - busy_ms / wall_ms_per_pair,
+          "kernel_launches_per_pair": sum(e.count for e in kernels) / n_pairs,
+          "top_kernels_ms_per_pair": [
+              [e.key[:90], e.device_time_total / 1e3 / n_pairs, e.count / n_pairs]
+              for e in top]})
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this check "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False   # f32 convs stay f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    phase_device()
+    phase_build()
+
+    reg = PairRegistrar()               # bench config, the card, seed 0
+    pair = bench_pair(reg.config)
+    launches, seconds_per_pair, q, pyr, feats = phase_pipeline(reg, pair)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k = reg.config.num_rand_keypoints
+    n_rows = q.xyz_down.shape[0]
+    i0, ok0 = sample_keypoints_segment(0, q.n0, k, n_rows, device="cuda", generator=gen)
+    i1, ok1 = sample_keypoints_segment(q.n0, q.sv.num_valid - q.n0, k, n_rows,
+                                       device="cuda", generator=gen)
+    kernels = [phase_kernel_a(pyr, gen),
+               phase_kernel_b(feats[i0].contiguous(), ok0, feats[i1].contiguous(),
+                              ok1, gen)]
+    for kern in kernels:               # counted in the pipeline's timed run
+        kern["launches"] = launches[kern["name"]]
+
+    phase_reference()
+    phase_profile(reg, pair, seconds_per_pair * 1e3)
+
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
