@@ -5,26 +5,44 @@
 
 Phases, each printed as one JSON line:
   device    nvidia-smi's name and power limit, torch and CUDA versions
-  build     both CUDA kernels built from imfnet_tpu_torch/csrc (nvcc, in
-            parallel), with seconds and the compiler's register report
-  kernel    kernel A (sparse-conv gather-GEMM) at every conv shape of the
-            main path, on the level sizes of the bench-scale pair, and
-            kernel B (flash NN) on the main path's keypoint descriptors,
-            each against its plain PyTorch version on the same inputs:
-            max error vs the stated tolerance, kernel / plain / library ms
-            (CUDA events) and the roofline bound
-  pipeline  warm-up pairs, then timed pairs through PairRegistrar at bench
+  build     the four CUDA kernels built from imfnet_tpu_torch/csrc (nvcc,
+            one process each, in parallel), with seconds and the
+            compiler's register report
+  pipeline  warm-up pairs, then timed pairs through PairRegistrar() at bench
             scale (synthetic_pair(RandomState(0), 200k points), 120x160
             images, DEFAULT_BUCKETS 2-batch pad, full-width ResUNetBN2C,
             bf16, 5000 keypoints, 50k hypotheses): pairs/s, per-stage ms,
             voxel and level counts, and the kernel launches of the timed
-            run, which must be 20 (kernel A) and 2 (kernel B) per pair
+            run, which must be 20 (kernel A), 2 (kernel B) and no C or D
+            per pair
+  grid_pipeline  the same pair and weights through the packed-grid path,
+            PairRegistrar(compact_impl="kernel", map_impl="banded"): the
+            same measurements; launches must be 1 (kernel C), 10 (kernel
+            D), 20 (A) and 2 (B) per pair, and its voxel table and every
+            kernel map must equal the default path's bit for bit, its
+            descriptors within 1e-5
+  kernel    kernel A (sparse-conv gather-GEMM) at every conv shape of the
+            main path, on the level sizes of the bench-scale pair, kernel B
+            (flash NN) on the main path's keypoint descriptors, kernel C
+            (sorted-run compaction) on the pair's 262 144 sorted raw-point
+            keys (and on them doubled, so that every run has a duplicate,
+            with enough slots and with too few), and kernel D
+            (word-table match) at each of the grid
+            path's 10 banded maps, each against its plain PyTorch version
+            on the same inputs: max error vs the stated tolerance (C and D
+            exact), kernel / plain / library ms (CUDA events) and the
+            roofline bound; C and D, whose calls take microseconds, are
+            timed as CUDA-graph replays (their eager event timing, bound
+            by the host's launch rate, is kept as eager_ms)
   reference the chain on a small pair, on the card vs on the CPU (the
-            plain versions, which the CPU tests hold to the JAX package):
-            equal tables, descriptors and transform within tolerance
+            plain versions, which the CPU tests hold to the JAX package),
+            for the default and the packed-grid path: equal tables,
+            descriptors and transform within tolerance
+  paths     pair latency of both paths, interleaved on the same host
   profile   torch.profiler over three pairs: device-busy ms per pair, the
             device's idle share against the unprofiled wall time, kernel
             launches per pair and the top kernels by device time
+  grid_profile  the same for the packed-grid path
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; so does a machine without CUDA.
 """
@@ -39,9 +57,15 @@ import torch
 from imfnet_tpu_torch.data.synthetic import synthetic_pair
 from imfnet_tpu_torch.eval.registration import sample_keypoints_segment
 from imfnet_tpu_torch.match.nn_kernel import flash_nn, nn_plain
-from imfnet_tpu_torch.pipeline import PairRegistrar, bench_config
+from imfnet_tpu_torch.pipeline import N_PAD_MAX, PairRegistrar, bench_config
 from imfnet_tpu_torch.sparse.conv_kernel import gather_gemm, gather_gemm_plain
+from imfnet_tpu_torch.sparse.grid import (cell_keys, compact_words, level_tables,
+                                          word_queries)
 from imfnet_tpu_torch.sparse.kernel_map import coarse_levels_fit
+from imfnet_tpu_torch.sparse.coords import row_mask
+from imfnet_tpu_torch.sparse.quant_kernel import sorted_compact, sorted_compact_plain
+from imfnet_tpu_torch.sparse.word_map_kernel import word_match, word_match_plain
+from imfnet_tpu_torch.train.step import level_capacities
 from imfnet_tpu_torch.utils import cuda_build
 
 # H100 SXM published dense peaks (NVIDIA data sheet), used for bounds only
@@ -63,8 +87,28 @@ MAIN_PATH_CONVS = (
 )
 assert len(MAIN_PATH_CONVS) == 20
 
+# The 10 kernel-D maps of one packed-grid pyramid (build_pyramid_grid with
+# map_impl="banded", conv1 k5): (name, query level, table level, kernel, mode)
+GRID_MAPS = (
+    [("k5 L0", 0, 0, 5, "same")]
+    + [(f"down L{i}", i, i - 1, 3, "down") for i in (1, 2, 3)]
+    + [(f"same L{i}", i, i, 3, "same") for i in (1, 2, 3)]
+    + [(f"up L{i}", i, i + 1, 3, "up") for i in (0, 1, 2)]
+)
+assert len(GRID_MAPS) == 10
+
 CONV_TOL_REL = 1e-4   # same exact bf16 products, f32 sums in another order
 NN_D2_ATOL = 1e-4     # f32 d² of O(1) descriptors, sums in another order
+GRID_DESC_ATOL = 1e-5  # equal maps and weights; only cuDNN's choice can differ
+
+# every kernel wrapper's launch counter, and the launches per pair each path
+# must make
+KERNELS = {"sparse_conv_gather_gemm": gather_gemm, "flash_nn": flash_nn,
+           "sorted_compact": sorted_compact, "word_match": word_match}
+DEFAULT_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
+                    "sorted_compact": 0, "word_match": 0}
+GRID_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
+                 "sorted_compact": 1, "word_match": 10}
 
 
 def emit(obj):
@@ -81,6 +125,31 @@ def cuda_ms(fn, iters, warmup=2):
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=20):
+    """Mean device ms per call of fn, `iters` calls captured in one CUDA
+    graph and replayed: no host time between launches, so kernels of a few
+    microseconds are not timed at the host's enqueue rate."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -109,7 +178,8 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    report = cuda_build.build(["sparse_conv", "flash_nn"])
+    report = cuda_build.build(["sparse_conv", "flash_nn", "sorted_compact",
+                               "word_match"])
     regs = {name: [ln.split("info    : ")[-1] for ln in r["ptxas"].splitlines()
                    if "registers" in ln or "spill" in ln]
             for name, r in report.items()}
@@ -249,6 +319,139 @@ def phase_kernel_b(kd0, ok0, kd1, ok1, gen):
     }
 
 
+def phase_kernel_c(reg, pair):
+    """Kernel C vs plain on the bench pair's sorted raw-point cell keys, as
+    quantize_grid(compact_impl="kernel") hands them over. The pair's points
+    are already one per voxel, so C is also held to its plain version on
+    the keys doubled (every run two long) and with fewer slots than runs."""
+    c = reg.config
+    pb = reg.prepare(pair.xyz0, pair.xyz1, pair.image0, pair.image1)
+    _, key = cell_keys(pb.xyz, pb.valid, c.voxel_size, pb.spec, pb.batch)
+    sk, order = torch.sort(key, stable=True)
+    n, n_out = sk.shape[0], 2 * N_PAD_MAX
+    sk2, order2 = torch.sort(torch.cat([key, key]), stable=True)
+    cases = {"bench": (sk, order, n_out), "doubled keys": (sk2, order2, n_out),
+             "doubled keys, overflow": (sk2, order2, n_out // 4)}
+    errs = []
+    for name, (k_, o_, m_) in cases.items():
+        sel, count = sorted_compact(k_, o_, m_)
+        ref_sel, ref_count = sorted_compact_plain(k_, o_, m_)
+        torch.cuda.synchronize()
+        if not (torch.equal(sel, ref_sel) and torch.equal(count, ref_count)):
+            raise AssertionError(f"kernel C disagrees with its plain version: {name}")
+        errs.append(float((sel - ref_sel).abs().max()))
+    sel, count = sorted_compact(sk, order, n_out)
+    err, runs = max(errs), int(count)
+    # sk read once, order read at the run starts only, sel and count written
+    nbytes = n * 8 + runs * 8 + n_out * 8 + 4
+    entry = {"rows": n, "n_out": n_out, "runs": runs, "max_abs_err": err,
+             "checked": list(cases),
+             "tol": 0, "ms": graph_ms(lambda: sorted_compact(sk, order, n_out)),
+             "eager_ms": cuda_ms(lambda: sorted_compact(sk, order, n_out), 20),
+             "plain_ms": graph_ms(lambda: sorted_compact_plain(sk, order, n_out)),
+             "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+             "cuda_kernels_per_call": 2}
+    emit({"phase": "kernel", "kernel": "sorted_compact", **entry})
+    return {
+        "name": "sorted_compact", "route": "cuda",
+        "source": "imfnet_tpu_torch/csrc/sorted_compact.cu",
+        "replaces": "imfnet_tpu/sparse/pallas_quant.py:122",
+        "unit": "per pair: one quantize (two CUDA kernels per launch)",
+        "max_abs_err": err, "ms": entry["ms"], "plain_ms": entry["plain_ms"],
+        "bound_ms": entry["bound_ms"], "bound_by": "bytes",
+        # no single PyTorch call compacts the run starts of a sorted stream
+        # to their rows without a host read (unique_consecutive syncs for
+        # its output size and returns no rows)
+        "library_ms": None,
+    }
+
+
+def phase_kernel_d(reg, q):
+    """Kernel D vs plain at each of the 10 banded maps of the bench pair's
+    packed-grid pyramid, on the word tables and queries that
+    build_pyramid_grid hands it."""
+    c = reg.config
+    caps = level_capacities(q.sv.n_padded, tuple(c.level_capacity_divisors))
+    origins, tables = level_tables(q.sv.coords, q.sv.num_valid, q.spec, caps)
+    valid = [row_mask(t.shape[0], n) for t, n in tables]
+    wtabs = [compact_words(t, v, origins, q.spec, lvl)
+             for lvl, ((t, _), v) in enumerate(zip(tables, valid))]
+    entries = []
+    for name, lvl, tl, k, mode in GRID_MAPS:
+        qk, _ = word_queries(origins, tables[lvl][0], valid[lvl], q.spec,
+                             table_level=tl, kernel_size=k, mode=mode)
+        wt = wtabs[tl]
+        keys, payload = wt.wkeys, wt.payload
+        out = word_match(keys, payload, qk)
+        ref = word_match_plain(keys, payload, qk)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"kernel D disagrees with its plain version at {name}")
+        m = keys.shape[0]
+        flat = qk.reshape(-1)
+
+        def library():
+            return payload[torch.searchsorted(keys, flat).clamp_max(m - 1)]
+
+        # queries read and 16 bytes a query written once; of the table, the
+        # entries in use (key and payload), not its WORD_PAD tail
+        used = int(wt.n_words)
+        nbytes = qk.numel() * 4 + used * (4 + 16) + qk.numel() * 16
+        entry = {"map": name, "rows": qk.shape[0], "columns": qk.shape[1],
+                 "table": m, "table_used": used,
+                 "max_abs_err": float((out - ref).abs().max()), "tol": 0,
+                 "ms": graph_ms(lambda: word_match(keys, payload, qk)),
+                 "eager_ms": cuda_ms(lambda: word_match(keys, payload, qk), 20),
+                 "plain_ms": graph_ms(lambda: word_match_plain(keys, payload, qk)),
+                 "library_ms": graph_ms(library),
+                 "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes"}
+        emit({"phase": "kernel", "kernel": "word_match", **entry})
+        entries.append(entry)
+    total = lambda k: sum(e[k] for e in entries)  # noqa: E731
+    return {
+        "name": "word_match", "route": "cuda",
+        "source": "imfnet_tpu_torch/csrc/word_match.cu",
+        "replaces": "imfnet_tpu/sparse/pallas_word_map.py:122",
+        "unit": "per pair: the 10 banded maps of one grid pyramid",
+        "max_abs_err": max(e["max_abs_err"] for e in entries),
+        "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+        "bound_by": "bytes",
+        # yardstick only: searchsorted + one gather reads the first matching
+        # entry and does not add the companion
+        "library_ms": total("library_ms"),
+    }
+
+
+def pyramid_tables(pyr):
+    out = {"k5_l0": pyr.k5_l0}
+    for i, lv in enumerate(pyr.levels):
+        out[f"L{i}.num_valid"] = lv.num_valid
+        for name in ("coords", "k3_same", "down", "up"):
+            if getattr(lv, name) is not None:
+                out[f"L{i}.{name}"] = getattr(lv, name)
+    return out
+
+
+def compare_paths(ref, got):
+    """The grid path's (q, pyr, feats) against the default path's on the
+    same pair: integer tables bit for bit, descriptors within 1e-5."""
+    (qd, pd, fd), (qg, pg, fg) = ref, got
+    same = {"coords": torch.equal(qg.sv.coords, qd.sv.coords),
+            "num_valid": torch.equal(qg.sv.num_valid, qd.sv.num_valid),
+            "xyz_down": torch.equal(qg.xyz_down, qd.xyz_down)}
+    td, tg = pyramid_tables(pd), pyramid_tables(pg)
+    same["map_keys"] = td.keys() == tg.keys()
+    for k in td:
+        same[k] = k in tg and torch.equal(td[k], tg[k])
+    desc_err = float((fg - fd).abs().max())
+    if not all(same.values()) or desc_err > GRID_DESC_ATOL:
+        raise AssertionError(f"grid path differs from the default path: "
+                             f"{[k for k, v in same.items() if not v]}, "
+                             f"descriptor err {desc_err}")
+    return {"tables_equal": sorted(same), "descriptor_max_abs_err": desc_err,
+            "descriptor_tol": GRID_DESC_ATOL}
+
+
 def check_outputs(q, feats, out):
     n = int(q.sv.num_valid)
     if not bool(torch.isfinite(feats).all()):
@@ -266,7 +469,12 @@ def check_outputs(q, feats, out):
             raise AssertionError(f"metric {k} is not finite")
 
 
-def phase_pipeline(reg, pair, n_warm=3, n_pairs=30):
+def phase_pipeline(reg, pair, phase="pipeline", per_pair=DEFAULT_LAUNCHES,
+                   reference=None, n_warm=3, n_pairs=30):
+    """Timed pairs through ``reg``; every kernel's launches are counted from
+    0 over the timed run and must be ``per_pair`` times the pairs. With
+    ``reference`` (the default path's q, pyramid, descriptors) the path's
+    own must equal it."""
     cfg = reg.config
     args = (pair.xyz0, pair.xyz1, pair.image0, pair.image1, pair.T_gt, np.eye(6))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -274,8 +482,8 @@ def phase_pipeline(reg, pair, n_warm=3, n_pairs=30):
         reg(*args, generator=gen)
     torch.cuda.synchronize()
 
-    gather_gemm.launches = 0
-    flash_nn.launches = 0
+    for fn in KERNELS.values():
+        fn.launches = 0
     lat = []
     t0 = time.perf_counter()
     for _ in range(n_pairs):
@@ -285,11 +493,10 @@ def phase_pipeline(reg, pair, n_warm=3, n_pairs=30):
         lat.append((time.perf_counter() - t) * 1e3)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"sparse_conv_gather_gemm": gather_gemm.launches,
-                "flash_nn": flash_nn.launches}
-    if launches != {"sparse_conv_gather_gemm": 20 * n_pairs, "flash_nn": 2 * n_pairs}:
-        raise AssertionError(f"kernel launches {launches} over {n_pairs} pairs; "
-                             f"want 20 and 2 per pair")
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    if launches != {k: v * n_pairs for k, v in per_pair.items()}:
+        raise AssertionError(f"{phase}: kernel launches {launches} over {n_pairs} "
+                             f"pairs; want {per_pair} per pair")
     # median, and the highest percentile with at least ten samples above it
     q_hi = (n_pairs - 10) / n_pairs
     latency = {"median_ms": float(np.median(lat)),
@@ -305,8 +512,10 @@ def phase_pipeline(reg, pair, n_warm=3, n_pairs=30):
     stages["match_ms"], out = host_ms(
         lambda: reg.match(q, feats, pair.T_gt, np.eye(6), generator=gen), 5)
     check_outputs(q, feats, out)
+    same = {} if reference is None else compare_paths(reference, (q, pyr, feats))
     n0 = int(q.n0)
-    emit({"phase": "pipeline", "pairs": n_pairs, "seconds": seconds,
+    emit({"phase": phase, "compact_impl": reg.compact_impl, "map_impl": reg.map_impl,
+          "pairs": n_pairs, "seconds": seconds,
           "pairs_per_s": n_pairs / seconds, "latency": latency, "stages": stages,
           "launches": launches,
           "launches_per_pair": {k: v / n_pairs for k, v in launches.items()},
@@ -318,18 +527,19 @@ def phase_pipeline(reg, pair, n_warm=3, n_pairs=30):
           "coarse_levels_fit": bool(coarse_levels_fit(pyr)),
           "keypoints": cfg.num_rand_keypoints, "hypotheses": cfg.ransac_max_iteration,
           "metrics": {k: float(v) for k, v in out.items() if v.numel() == 1},
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          **same})
     return launches, seconds / n_pairs, q, pyr, feats
 
 
-def phase_reference():
+def phase_reference(path="default", **impls):
     """The chain on a small pair, card vs CPU, same weights and draws, f32."""
     cfg = bench_config().replace(compute_dtype="float32", num_rand_keypoints=400,
                                  ransac_max_iteration=12500)
     pair = synthetic_pair(np.random.RandomState(2), n_points=6000, image_hw=(24, 32))
     outs = []
     for device in ("cuda", "cpu"):
-        reg = PairRegistrar(cfg, device=device, seed=1)
+        reg = PairRegistrar(cfg, device=device, seed=1, **impls)
         pb = reg.prepare(pair.xyz0, pair.xyz1, pair.image0, pair.image1)
         q = reg.quantize(pb)
         pyr = reg.pyramid(q)
@@ -344,24 +554,40 @@ def phase_reference():
         outs.append((q, pyr, feats, out))
     (qg, pg, fg, og), (qc, pc, fc, oc) = outs
     if not torch.equal(qg.sv.coords.cpu(), qc.sv.coords):
-        raise AssertionError("reference: voxel tables differ")
-    for lg, lc in zip(pg.levels, pc.levels):
-        for name in ("coords", "k3_same", "down", "up"):
-            a, b = getattr(lg, name), getattr(lc, name)
-            if (a is None) != (b is None) or (a is not None and not torch.equal(a.cpu(), b)):
-                raise AssertionError(f"reference: level table {name} differs")
+        raise AssertionError(f"reference {path}: voxel tables differ")
+    tg, tc = pyramid_tables(pg), pyramid_tables(pc)
+    if tg.keys() != tc.keys() or not all(torch.equal(tg[k].cpu(), tc[k]) for k in tc):
+        raise AssertionError(f"reference {path}: pyramid tables differ")
     f_err = float((fg.cpu() - fc).abs().max())
     t_err = float((og["transformation"].cpu() - oc["transformation"]).abs().max())
     same_accept = bool(og["accepted"]) == bool(oc["accepted"])
-    emit({"phase": "reference", "voxels": int(qg.sv.num_valid),
+    emit({"phase": "reference", "path": path, **impls, "voxels": int(qg.sv.num_valid),
           "descriptor_max_abs_err": f_err, "descriptor_tol": 1e-4,
           "transform_max_abs_err": t_err, "transform_tol": 1e-3,
           "accepted": [bool(og["accepted"]), bool(oc["accepted"])]})
     if f_err > 1e-4 or t_err > 1e-3 or not same_accept:
-        raise AssertionError("reference: card and CPU disagree")
+        raise AssertionError(f"reference {path}: card and CPU disagree")
 
 
-def phase_profile(reg, pair, wall_ms_per_pair, n_pairs=3):
+def phase_paths(reg, reg_grid, pair, rounds=10):
+    """Pair latency of the default and the packed-grid path, interleaved
+    (default, grid, grid, default per round) so that both see the same
+    host."""
+    args = (pair.xyz0, pair.xyz1, pair.image0, pair.image1, pair.T_gt, np.eye(6))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    lat = {"default": [], "grid": []}
+    for _ in range(rounds):
+        for name, r in (("default", reg), ("grid", reg_grid), ("grid", reg_grid),
+                        ("default", reg)):
+            t = time.perf_counter()
+            float(r(*args, generator=gen)["rte"])
+            lat[name].append((time.perf_counter() - t) * 1e3)
+    emit({"phase": "paths", "order": "default, grid, grid, default", "rounds": rounds,
+          **{f"{k}_median_ms": float(np.median(v)) for k, v in lat.items()},
+          **{f"{k}_ms": v for k, v in lat.items()}})
+
+
+def phase_profile(reg, pair, wall_ms_per_pair, phase="profile", n_pairs=3):
     """Device time by kernel over a few pairs (torch.profiler, CUPTI). The
     idle share compares the device-busy time per pair with the unprofiled
     wall time per pair of the pipeline phase."""
@@ -380,7 +606,7 @@ def phase_profile(reg, pair, wall_ms_per_pair, n_pairs=3):
         raise AssertionError("profile: the trace holds no device kernels")
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / n_pairs
     top = sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:15]
-    emit({"phase": "profile", "pairs": n_pairs,
+    emit({"phase": phase, "pairs": n_pairs,
           "device_busy_ms_per_pair": busy_ms,
           "wall_ms_per_pair_unprofiled": wall_ms_per_pair,
           "device_idle_share": 1 - busy_ms / wall_ms_per_pair,
@@ -404,6 +630,11 @@ def main():
     reg = PairRegistrar()               # bench config, the card, seed 0
     pair = bench_pair(reg.config)
     launches, seconds_per_pair, q, pyr, feats = phase_pipeline(reg, pair)
+    grid = dict(compact_impl="kernel", map_impl="banded")
+    reg_grid = PairRegistrar(**grid)    # the same weights (seed 0)
+    grid_launches, grid_seconds_per_pair, q_grid, _, _ = phase_pipeline(
+        reg_grid, pair, "grid_pipeline", GRID_LAUNCHES, reference=(q, pyr, feats),
+        n_pairs=15)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     k = reg.config.num_rand_keypoints
@@ -416,9 +647,18 @@ def main():
                               ok1, gen)]
     for kern in kernels:               # counted in the pipeline's timed run
         kern["launches"] = launches[kern["name"]]
+    grid_kernels = [phase_kernel_c(reg_grid, pair), phase_kernel_d(reg_grid, q_grid)]
+    for kern in grid_kernels:          # counted in the grid pipeline's timed run
+        kern["launches"] = grid_launches[kern["name"]]
+    kernels += grid_kernels
 
     phase_reference()
+    phase_reference("grid", **grid)
+    # before the profiler: a CUDA profiling session slows the host's later
+    # launches in the same process
+    phase_paths(reg, reg_grid, pair)
     phase_profile(reg, pair, seconds_per_pair * 1e3)
+    phase_profile(reg_grid, pair, grid_seconds_per_pair * 1e3, "grid_profile")
 
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

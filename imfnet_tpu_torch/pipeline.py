@@ -50,6 +50,7 @@ class Quantized(NamedTuple):
     sv: SparseVoxels         # level-0 voxels of both fragments, 2-batch pad
     xyz_down: torch.Tensor   # f32[n_pad, 3] representative points
     n0: torch.Tensor         # int[] voxels of fragment 0 (rows [0, n0))
+    spec: GridSpec           # the extent the voxels were quantized in
 
 
 def init_model(config: Config, seed: int = 0) -> torch.nn.Module:
@@ -73,12 +74,19 @@ class PairRegistrar:
     ``device`` defaults to the card and raises without one; pass
     ``device="cpu"`` for the plain PyTorch path. ``state_dict`` (for example
     from ``utils.flax_weights.state_dict_from_flax``) replaces the seeded
-    random weights."""
+    random weights. ``compact_impl`` ("auto" or "kernel") goes to
+    ``quantize_grid`` and ``map_impl`` ("search" or "banded") to
+    ``make_pyramid_fn``; the packed-grid path is
+    ``compact_impl="kernel", map_impl="banded"``, and every choice gives the
+    same voxels and kernel maps."""
 
     def __init__(self, config: Optional[Config] = None, *, device=None,
-                 state_dict=None, seed: int = 0):
+                 state_dict=None, seed: int = 0, compact_impl: str = "auto",
+                 map_impl: str = "search"):
         self.device = resolve_device(device)
         self.config = config if config is not None else bench_config()
+        self.compact_impl = compact_impl
+        self.map_impl = map_impl
         model = init_model(self.config, seed)
         if state_dict is not None:
             model.load_state_dict(state_dict)
@@ -122,17 +130,19 @@ class PairRegistrar:
         ones = torch.ones((n, 1), device=self.device)
         sv, _, xyz_down = quantize_grid(pb.xyz, ones, pb.valid,
                                         self.config.voxel_size, 2 * N_PAD_MAX,
-                                        pb.spec, batch_index=pb.batch)
+                                        pb.spec, batch_index=pb.batch,
+                                        compact_impl=self.compact_impl)
         n_vox = int(sv.num_valid)
         n_pad = next((2 * b for b in DEFAULT_BUCKETS if 2 * b >= n_vox),
                      2 * N_PAD_MAX)
         sv = SparseVoxels(sv.coords[:n_pad], sv.feats[:n_pad], sv.num_valid)
         n0 = ((sv.coords[:, 0] == 0) & sv.mask()).sum()
-        return Quantized(sv, xyz_down[:n_pad], n0)
+        return Quantized(sv, xyz_down[:n_pad], n0, pb.spec)
 
     def pyramid(self, q: Quantized) -> CoordinatePyramid:
-        return make_pyramid_fn(self.config, q.sv.n_padded)(q.sv.coords,
-                                                           q.sv.num_valid)
+        fn = make_pyramid_fn(self.config, q.sv.n_padded, q.spec.num_batches,
+                             extent=q.spec.extent, map_impl=self.map_impl)
+        return fn(q.sv.coords, q.sv.num_valid)
 
     def forward(self, q: Quantized, pyr: CoordinatePyramid,
                 images: torch.Tensor) -> torch.Tensor:

@@ -5,10 +5,13 @@ row and kernel offset, the input row or -1. Offsets enumerate in
 ``itertools.product`` order (dx slowest, dz fastest), radius
 ``kernel_size // 2``, scaled by the level's tensor stride.
 
-One exact builder serves both JAX builders (``kernel_map.build_pyramid`` and
-``grid.build_pyramid_grid``, whose tables are equal): each level's table is
-the sorted unique set of strided coordinates, and each map is a sort-free
-``torch.searchsorted`` of the offset keys into the sorted source table.
+This module holds the search builder (``imfnet_tpu.sparse.kernel_map
+.build_pyramid``): each level's table is the sorted unique set of strided
+coordinates, and each map is a sort-free ``torch.searchsorted`` of the offset
+keys into the sorted source table. It needs no grid extent and is the
+default of ``train.step.make_pyramid_fn``. The packed-grid builder
+(``sparse.grid.build_pyramid_grid``) gives the same tables for in-extent
+inputs.
 """
 from __future__ import annotations
 

@@ -11,6 +11,9 @@ import torch
 
 from imfnet_tpu_torch.match.nn_kernel import flash_nn, nn_plain
 from imfnet_tpu_torch.sparse.conv_kernel import gather_gemm, gather_gemm_plain
+from imfnet_tpu_torch.sparse.quant_kernel import (INVALID_KEY, sorted_compact,
+                                                  sorted_compact_plain)
+from imfnet_tpu_torch.sparse.word_map_kernel import word_match, word_match_plain
 
 
 @pytest.fixture
@@ -82,3 +85,79 @@ def test_flash_nn_matches_plain(gen, d, valid_kind):
 def test_flash_nn_rejects_other_widths(gen):
     with pytest.raises(ValueError, match="serves D"):
         flash_nn(torch.zeros((4, 8), device="cuda"), torch.zeros((5, 8), device="cuda"))
+
+
+def _sorted_stream(gen, n, n_keys, invalid):
+    key = torch.randint(0, n_keys, (n,), generator=gen, device="cuda")
+    drop = torch.rand((n,), generator=gen, device="cuda") < invalid
+    key = torch.where(drop, INVALID_KEY, key)
+    return torch.sort(key, stable=True)
+
+
+# (rows, distinct keys, invalid share, n_out): duplicates and invalid rows
+# across tile edges, capacity overflow, all invalid, a ragged last tile, one
+# row, more slots than rows, and the main path's raw-row count
+COMPACT_CASES = [(4096, 700, 0.1, 1024), (4096, 3000, 0.0, 512), (2048, 10, 1.0, 64),
+                 (5000, 1 << 40, 0.05, 8192), (1, 5, 0.0, 4), (3000, 50, 0.2, 0),
+                 (262144, 1 << 22, 0.4, 65536)]
+
+
+@pytest.mark.parametrize("n,n_keys,invalid,n_out", COMPACT_CASES)
+def test_sorted_compact_matches_plain(gen, n, n_keys, invalid, n_out):
+    sk, order = _sorted_stream(gen, n, n_keys, invalid)
+    before = sorted_compact.launches
+    sel, count = sorted_compact(sk, order, n_out)
+    ref_sel, ref_count = sorted_compact_plain(sk, order, n_out)
+    torch.cuda.synchronize()
+    assert sorted_compact.launches == before + 1
+    assert sel.dtype == torch.int64 and count.dtype == torch.int32
+    assert torch.equal(sel, ref_sel) and torch.equal(count, ref_count)
+
+
+def test_sorted_compact_rejects_wrong_dtypes(gen):
+    sk, order = _sorted_stream(gen, 100, 10, 0.0)
+    with pytest.raises(TypeError):
+        sorted_compact(sk.int(), order, 10)
+    with pytest.raises(TypeError):
+        sorted_compact(sk, order.int(), 10)
+
+
+def _word_table(gen, m):
+    """Sorted keys with runs of one or two entries, the second of a pair
+    zero, like compact_words' anchor/companion pairs."""
+    step = torch.randint(1, 4, (m,), generator=gen, device="cuda")
+    pair = torch.rand((m,), generator=gen, device="cuda") < 0.3
+    step = torch.where(pair & (torch.arange(m, device="cuda") > 0), 0, step)
+    keys = (torch.cumsum(step, 0) - 1).to(torch.int32)
+    payload = torch.randint(-(1 << 31), (1 << 31) - 1, (m, 4), generator=gen,
+                            device="cuda", dtype=torch.int64).to(torch.int32)
+    dup = torch.cat([torch.zeros(1, dtype=torch.bool, device="cuda"), keys[1:] == keys[:-1]])
+    payload[dup] = 0
+    return keys.contiguous(), payload.contiguous()
+
+
+@pytest.mark.parametrize("m,shape", [(2048, (512, 9)), (262144, (65536, 25)),
+                                     (1, (7, 3)), (5000, (1000,))])
+def test_word_match_matches_plain(gen, m, shape):
+    keys, payload = _word_table(gen, m)
+    hi = int(keys[-1]) + 3
+    q = torch.randint(-3, hi, shape, generator=gen, device="cuda", dtype=torch.int32)
+    before = word_match.launches
+    out = word_match(keys, payload, q)
+    ref = word_match_plain(keys, payload, q)
+    torch.cuda.synchronize()
+    assert word_match.launches == before + 1
+    assert out.shape == (*shape, 4) and out.dtype == torch.int32
+    assert torch.equal(out, ref)
+    assert (out[q < 0] == 0).all()
+
+
+def test_word_match_rejects_wrong_dtypes(gen):
+    keys, payload = _word_table(gen, 64)
+    q = keys[:8].contiguous()
+    with pytest.raises(TypeError):
+        word_match(keys.long(), payload, q)
+    with pytest.raises(TypeError):
+        word_match(keys, payload.float(), q)
+    with pytest.raises(TypeError):
+        word_match(keys, payload, q.long())
