@@ -7,20 +7,21 @@ Phases, each printed as one JSON line:
   device    nvidia-smi's name and power limit, torch and CUDA versions
   build     the four CUDA kernels built from imfnet_tpu_torch/csrc (nvcc,
             one process each, in parallel), with seconds and the
-            compiler's register report
+            compiler's register report, and the spills of each of kernel
+            A's tensor-core instances (reported; there should be none)
   pipeline  warm-up pairs, then timed pairs through PairRegistrar() at bench
             scale (synthetic_pair(RandomState(0), 200k points), 120x160
             images, DEFAULT_BUCKETS 2-batch pad, full-width ResUNetBN2C,
             bf16, 5000 keypoints, 50k hypotheses): pairs/s, per-stage ms,
             voxel and level counts, and the kernel launches of the timed
-            run, which must be 20 (kernel A), 2 (kernel B) and no C or D
-            per pair
+            run, which must be 20 (kernel A, all 20 in its tensor-core
+            variant), 2 (kernel B) and no C or D per pair
   grid_pipeline  the same pair and weights through the packed-grid path,
             PairRegistrar(compact_impl="kernel", map_impl="banded"): the
             same measurements; launches must be 1 (kernel C), 10 (kernel
-            D), 20 (A) and 2 (B) per pair, and its voxel table and every
-            kernel map must equal the default path's bit for bit, its
-            descriptors within 1e-5
+            D), 20 (A, all tensor-core) and 2 (B) per pair, and its voxel
+            table and every kernel map must equal the default path's bit
+            for bit, its descriptors within 1e-5
   kernel    kernel A (sparse-conv gather-GEMM) at every conv shape of the
             main path, on the level sizes of the bench-scale pair, kernel B
             (flash NN) on the main path's keypoint descriptors, kernel C
@@ -31,13 +32,21 @@ Phases, each printed as one JSON line:
             path's 10 banded maps, each against its plain PyTorch version
             on the same inputs: max error vs the stated tolerance (C and D
             exact), kernel / plain / library ms (CUDA events) and the
-            roofline bound; C and D, whose calls take microseconds, are
+            roofline bound; A, C and D, whose calls take microseconds, are
             timed as CUDA-graph replays (their eager event timing, bound
-            by the host's launch rate, is kept as eager_ms)
+            by the host's launch rate, is kept as eager_ms). Kernel A also
+            reports its plan (variant, tile, split), that two calls are
+            bit-equal and dead rows exactly 0, and dense_gemm_ms: one
+            torch.matmul of the pre-gathered [n_out, 27*cin] bf16 matrix by
+            [27*cin, cout], a yardstick of the dense work only (the port
+            never calls it)
   reference the chain on a small pair, on the card vs on the CPU (the
             plain versions, which the CPU tests hold to the JAX package),
-            for the default and the packed-grid path: equal tables,
-            descriptors and transform within tolerance
+            in f32 for the default and the packed-grid path (equal tables,
+            descriptors and transform within tolerance), and in bf16 for
+            the default path, where the card's forward takes kernel A's
+            tensor-core variant (equal tables, descriptors within the bf16
+            tolerance)
   paths     pair latency of both paths, interleaved on the same host
   profile   torch.profiler over three pairs: device-busy ms per pair, the
             device's idle share against the unprofiled wall time, kernel
@@ -47,6 +56,7 @@ Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; so does a machine without CUDA.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -58,7 +68,8 @@ from imfnet_tpu_torch.data.synthetic import synthetic_pair
 from imfnet_tpu_torch.eval.registration import sample_keypoints_segment
 from imfnet_tpu_torch.match.nn_kernel import flash_nn, nn_plain
 from imfnet_tpu_torch.pipeline import N_PAD_MAX, PairRegistrar, bench_config
-from imfnet_tpu_torch.sparse.conv_kernel import gather_gemm, gather_gemm_plain
+from imfnet_tpu_torch.sparse.conv_kernel import (TC_TILES, conv_plan, gather_gemm,
+                                                 gather_gemm_plain)
 from imfnet_tpu_torch.sparse.grid import (cell_keys, compact_words, level_tables,
                                           word_queries)
 from imfnet_tpu_torch.sparse.kernel_map import coarse_levels_fit
@@ -100,19 +111,43 @@ assert len(GRID_MAPS) == 10
 CONV_TOL_REL = 1e-4   # same exact bf16 products, f32 sums in another order
 NN_D2_ATOL = 1e-4     # f32 d² of O(1) descriptors, sums in another order
 GRID_DESC_ATOL = 1e-5  # equal maps and weights; only cuDNN's choice can differ
+# bf16 descriptors, card vs CPU: both round each layer's f32 sums to bf16,
+# summed in another order, so a rounding can flip (2^-9 relative) over ~25
+# layers; the bound tests/test_torch_port_model.py holds bf16 descriptors to
+REF_BF16_DESC_ATOL = 1e-2
+REF_BF16_MIN_COS = 0.999
 
-# every kernel wrapper's launch counter, and the launches per pair each path
-# must make
+# every kernel wrapper's launch counter, kernel A's counts per variant, and
+# the launches per pair each path must make
 KERNELS = {"sparse_conv_gather_gemm": gather_gemm, "flash_nn": flash_nn,
            "sorted_compact": sorted_compact, "word_match": word_match}
+A_VARIANTS = {"sparse_conv_gather_gemm.tc": "launches_tc",
+              "sparse_conv_gather_gemm.scalar": "launches_scalar"}
 DEFAULT_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
-                    "sorted_compact": 0, "word_match": 0}
+                    "sorted_compact": 0, "word_match": 0,
+                    "sparse_conv_gather_gemm.tc": 20,
+                    "sparse_conv_gather_gemm.scalar": 0}
 GRID_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
-                 "sorted_compact": 1, "word_match": 10}
+                 "sorted_compact": 1, "word_match": 10,
+                 "sparse_conv_gather_gemm.tc": 20,
+                 "sparse_conv_gather_gemm.scalar": 0}
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def reset_counts():
+    for fn in KERNELS.values():
+        fn.launches = 0
+    for attr in A_VARIANTS.values():
+        setattr(gather_gemm, attr, 0)
+
+
+def read_counts():
+    counts = {k: fn.launches for k, fn in KERNELS.items()}
+    counts.update({k: getattr(gather_gemm, attr) for k, attr in A_VARIANTS.items()})
+    return counts
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -176,6 +211,16 @@ def phase_device():
           "count": torch.cuda.device_count()})
 
 
+def tc_spills(ptxas):
+    """{"bm x bn x bk": [stack, spill stores, spill loads] bytes} of kernel
+    A's tensor-core instances, from the compiler's -v report."""
+    found = re.findall(
+        r"Function properties for \S*gather_gemm_tcILi(\d+)ELi(\d+)ELi(\d+)E\S*\s+"
+        r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+        ptxas)
+    return {f"{m}x{n}x{k}": [int(a), int(b), int(c)] for m, n, k, a, b, c in found}
+
+
 def phase_build():
     t0 = time.perf_counter()
     report = cuda_build.build(["sparse_conv", "flash_nn", "sorted_compact",
@@ -183,9 +228,15 @@ def phase_build():
     regs = {name: [ln.split("info    : ")[-1] for ln in r["ptxas"].splitlines()
                    if "registers" in ln or "spill" in ln]
             for name, r in report.items()}
+    spills = tc_spills(report["sparse_conv"]["ptxas"])
+    if report["sparse_conv"]["ptxas"] and len(spills) != len(TC_TILES):
+        raise AssertionError(f"build: the report names {sorted(spills)}, "
+                             f"not the {len(TC_TILES)} tensor-core instances")
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "per_source_seconds": {k: round(v["seconds"], 3) for k, v in report.items()},
-          "ptxas": regs})
+          "ptxas": regs,
+          "kernel_a_tc_stack_spill_stores_loads": spills,
+          "kernel_a_tc_spills": sorted(k for k, v in spills.items() if v[1] or v[2])})
 
 
 def bench_pair(config):
@@ -206,7 +257,10 @@ def conv_inputs(pyr, level, which, cin, cout, gen):
 
 
 def phase_kernel_a(pyr, gen):
-    """Kernel A vs plain at each distinct conv call of the main path."""
+    """Kernel A vs plain at each distinct conv call of the main path: the
+    plan it takes (the tensor-core variant, asserted), the error, dead rows
+    exactly 0 and two calls bit-equal; graph-timed kernel, plain and
+    dense_gemm_ms."""
     shapes, seen = [], {}
     for name, level, which, cin, cout in MAIN_PATH_CONVS:
         key = (level, which, cin, cout)
@@ -214,29 +268,61 @@ def phase_kernel_a(pyr, gen):
             seen[key]["count"] += 1
             continue
         x, nbr, w = conv_inputs(pyr, level, which, cin, cout, gen)
+        n_out, n_in = nbr.shape[0], x.shape[0]
+        plan = conv_plan(n_out, cin, cout, nbr.shape[1], x.dtype)
+        tc_before = gather_gemm.launches_tc
         out = gather_gemm(x, nbr, w)
+        again = gather_gemm(x, nbr, w)
         ref = gather_gemm_plain(x, nbr, w)
         torch.cuda.synchronize()
+        if plan.variant != "tc" or gather_gemm.launches_tc != tc_before + 2:
+            raise AssertionError(f"kernel A at {key} did not take the tensor-core "
+                                 f"variant: {plan}")
         err = float((out - ref).abs().max())
         tol = CONV_TOL_REL * max(1.0, float(ref.abs().max()))
         nnz = int((nbr >= 0).sum())
-        n_out, n_in = nbr.shape[0], x.shape[0]
         dead = (nbr < 0).all(dim=1)
-        if err > tol or not bool((out[dead] == 0).all()):
-            raise AssertionError(f"kernel A disagrees at {key}: err {err} > {tol} "
-                                 f"or a dead row is not exactly 0")
+        bit_equal = torch.equal(out, again)
+        if err > tol or not bool((out[dead] == 0).all()) or not bit_equal:
+            raise AssertionError(f"kernel A disagrees at {key}: err {err} > {tol}, "
+                                 f"a dead row is not exactly 0, or two calls "
+                                 f"differ (bit-equal {bit_equal})")
+        # how sparse the work is: live offsets per live row, and the share of
+        # (tile, offset) pairs with a live row among the tiles with one
+        live = nbr >= 0
+        rows_read = int(torch.unique(nbr[live]).numel())
+        offsets_read = int(live.any(dim=0).sum())
+        tiles = torch.nn.functional.pad(live, (0, 0, 0, -n_out % plan.bm))
+        tiles = tiles.reshape(-1, plan.bm, live.shape[1]).any(dim=1)
+        tiles = tiles[tiles.any(dim=1)]
+        # the dense yardstick: the gathered matrix is built once, outside
+        idx = torch.where(nbr >= 0, nbr, n_in).long()
+        dense_a = torch.cat([x, x.new_zeros((1, cin))])[idx].reshape(n_out, -1)
+        dense_b = w.reshape(-1, cout)
+        # bytes: the map and the output once; of x only the rows the map
+        # names (each level's capacity padding is never read), of W only
+        # the offsets with a live entry
         ops_ms = 2.0 * nnz * cin * cout / PEAK_BF16_FLOPS * 1e3
-        bytes_ms = (n_in * cin * 2 + nbr.numel() * 4 + w.numel() * 2
-                    + n_out * cout * 4) / PEAK_BYTES * 1e3
+        bytes_ms = (rows_read * cin * 2 + nbr.numel() * 4
+                    + offsets_read * cin * cout * 2 + n_out * cout * 4) / PEAK_BYTES * 1e3
         entry = {
             "conv": name, "level": level, "map": which, "cin": cin, "cout": cout,
-            "n_in": n_in, "n_out": n_out, "nnz": nnz, "count": 1,
-            "max_abs_err": err, "tol": tol,
-            "ms": cuda_ms(lambda: gather_gemm(x, nbr, w), 20),
-            "plain_ms": cuda_ms(lambda: gather_gemm_plain(x, nbr, w), 5),
+            "n_in": n_in, "n_out": n_out, "nnz": nnz, "x_rows_read": rows_read,
+            "offsets_read": offsets_read,
+            "live_rows": int((~dead).sum()), "count": 1,
+            "offsets_per_live_row": float(live[~dead].sum(dim=1).float().mean()),
+            "tile_offsets_live": float(tiles.float().mean()),
+            "variant": plan.variant, "tile": [plan.bm, plan.bn], "bk": plan.bk,
+            "split": plan.split, "blocks": plan.blocks(n_out, cout),
+            "max_abs_err": err, "tol": tol, "bit_equal": bit_equal,
+            "ms": graph_ms(lambda: gather_gemm(x, nbr, w)),
+            "eager_ms": cuda_ms(lambda: gather_gemm(x, nbr, w), 20),
+            "plain_ms": graph_ms(lambda: gather_gemm_plain(x, nbr, w), 5),
+            "dense_gemm_ms": graph_ms(lambda: torch.matmul(dense_a, dense_b), 5),
             "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
         }
+        del dense_a
         seen[key] = entry
         shapes.append(entry)
     for e in shapes:
@@ -244,6 +330,7 @@ def phase_kernel_a(pyr, gen):
     total = lambda k: sum(e[k] * e["count"] for e in shapes)  # noqa: E731
     ops_ms = sum(e["ops_ms"] * e["count"] for e in shapes)
     bytes_ms = sum(e["bytes_ms"] * e["count"] for e in shapes)
+    slower = [e["conv"] for e in shapes if e["ms"] >= e["plain_ms"]]
     return {
         "name": "sparse_conv_gather_gemm", "route": "cuda",
         "source": "imfnet_tpu_torch/csrc/sparse_conv.cu",
@@ -251,11 +338,14 @@ def phase_kernel_a(pyr, gen):
         "also_replaces": ["imfnet_tpu/sparse/pallas_conv.py:485",
                           "imfnet_tpu/sparse/pallas_conv.py:595"],
         "unit": "per pair: the 20 convs of one forward",
+        "variant": "tc",
         "max_abs_err": max(e["max_abs_err"] for e in shapes),
-        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "ms": total("ms"), "eager_ms": total("eager_ms"), "plain_ms": total("plain_ms"),
+        "dense_gemm_ms": total("dense_gemm_ms"),
         "bound_ms": total("bound_ms"),
         "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
         "library_ms": None,
+        "shapes_not_faster_than_plain": slower,
     }
 
 
@@ -482,8 +572,7 @@ def phase_pipeline(reg, pair, phase="pipeline", per_pair=DEFAULT_LAUNCHES,
         reg(*args, generator=gen)
     torch.cuda.synchronize()
 
-    for fn in KERNELS.values():
-        fn.launches = 0
+    reset_counts()
     lat = []
     t0 = time.perf_counter()
     for _ in range(n_pairs):
@@ -493,7 +582,7 @@ def phase_pipeline(reg, pair, phase="pipeline", per_pair=DEFAULT_LAUNCHES,
         lat.append((time.perf_counter() - t) * 1e3)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    launches = read_counts()
     if launches != {k: v * n_pairs for k, v in per_pair.items()}:
         raise AssertionError(f"{phase}: kernel launches {launches} over {n_pairs} "
                              f"pairs; want {per_pair} per pair")
@@ -532,18 +621,30 @@ def phase_pipeline(reg, pair, phase="pipeline", per_pair=DEFAULT_LAUNCHES,
     return launches, seconds / n_pairs, q, pyr, feats
 
 
-def phase_reference(path="default", **impls):
-    """The chain on a small pair, card vs CPU, same weights and draws, f32."""
-    cfg = bench_config().replace(compute_dtype="float32", num_rand_keypoints=400,
+def phase_reference(path="default", compute_dtype="float32", **impls):
+    """The chain on a small pair, card vs CPU, same weights and draws. f32
+    (kernel A's scalar variant on the card, asserted): equal tables,
+    descriptors within 1e-4, transforms within 1e-3. bf16, the main path's
+    dtype (all 20 kernel-A launches of the card's forward take the
+    tensor-core variant, asserted): equal tables, and descriptors within
+    REF_BF16_DESC_ATOL with every live row's cosine above REF_BF16_MIN_COS;
+    the match is only reported, since the nearest neighbours of descriptors
+    that differ by bf16 roundings may differ."""
+    cfg = bench_config().replace(compute_dtype=compute_dtype, num_rand_keypoints=400,
                                  ransac_max_iteration=12500)
     pair = synthetic_pair(np.random.RandomState(2), n_points=6000, image_hw=(24, 32))
+    want = {"float32": [0, 20], "bfloat16": [20, 0]}[compute_dtype]
     outs = []
     for device in ("cuda", "cpu"):
         reg = PairRegistrar(cfg, device=device, seed=1, **impls)
         pb = reg.prepare(pair.xyz0, pair.xyz1, pair.image0, pair.image1)
         q = reg.quantize(pb)
         pyr = reg.pyramid(q)
+        before = [gather_gemm.launches_tc, gather_gemm.launches_scalar]
         feats = reg.forward(q, pyr, pb.images)
+        if device == "cuda":
+            variants = [gather_gemm.launches_tc - before[0],
+                        gather_gemm.launches_scalar - before[1]]
         n = q.sv.n_padded
         rs = np.random.RandomState(4)
         u = tuple(torch.from_numpy(rs.rand(n).astype(np.float32)).to(device)
@@ -559,14 +660,25 @@ def phase_reference(path="default", **impls):
     if tg.keys() != tc.keys() or not all(torch.equal(tg[k].cpu(), tc[k]) for k in tc):
         raise AssertionError(f"reference {path}: pyramid tables differ")
     f_err = float((fg.cpu() - fc).abs().max())
+    n_live = int(qc.sv.num_valid)
+    min_cos = float((fg.cpu()[:n_live] * fc[:n_live]).sum(dim=1).min())
     t_err = float((og["transformation"].cpu() - oc["transformation"]).abs().max())
     same_accept = bool(og["accepted"]) == bool(oc["accepted"])
-    emit({"phase": "reference", "path": path, **impls, "voxels": int(qg.sv.num_valid),
-          "descriptor_max_abs_err": f_err, "descriptor_tol": 1e-4,
-          "transform_max_abs_err": t_err, "transform_tol": 1e-3,
+    bf16 = compute_dtype == "bfloat16"
+    f_tol = REF_BF16_DESC_ATOL if bf16 else 1e-4
+    emit({"phase": "reference", "path": path, "compute_dtype": compute_dtype, **impls,
+          "voxels": int(qg.sv.num_valid),
+          "kernel_a_launches_tc_scalar": variants,
+          "descriptor_max_abs_err": f_err, "descriptor_tol": f_tol,
+          "descriptor_min_cos": min_cos,
+          "transform_max_abs_err": t_err, "transform_tol": None if bf16 else 1e-3,
           "accepted": [bool(og["accepted"]), bool(oc["accepted"])]})
-    if f_err > 1e-4 or t_err > 1e-3 or not same_accept:
-        raise AssertionError(f"reference {path}: card and CPU disagree")
+    if variants != want:
+        raise AssertionError(f"reference {path} {compute_dtype}: kernel A took "
+                             f"{variants} tensor-core/scalar launches, want {want}")
+    if f_err > f_tol or (bf16 and min_cos < REF_BF16_MIN_COS) or (
+            not bf16 and (t_err > 1e-3 or not same_accept)):
+        raise AssertionError(f"reference {path} {compute_dtype}: card and CPU disagree")
 
 
 def phase_paths(reg, reg_grid, pair, rounds=10):
@@ -654,6 +766,7 @@ def main():
 
     phase_reference()
     phase_reference("grid", **grid)
+    phase_reference(compute_dtype="bfloat16")
     # before the profiler: a CUDA profiling session slows the host's later
     # launches in the same process
     phase_paths(reg, reg_grid, pair)

@@ -3,7 +3,7 @@
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes``. Libraries go into ``_build/`` beside the
 package (listed in ``.gitignore``), named by a hash of the source and the
-flags, so an edited source is rebuilt at its next use. Nothing is built when
+flags, so an edited source or header is rebuilt at its next use. Nothing is built when
 a module is imported: the first kernel launch builds what it needs, and
 ``build`` compiles several sources at once (one ``nvcc`` process each).
 """
@@ -41,8 +41,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to: named by a hash of the source,
+    every header of ``csrc/`` (``*.cuh``) and the flags."""
+    digest = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
-Kernels build with nvcc and run only on an NVIDIA GPU (sm_90a); without one
-every test here skips (the fixture decides, at run time). On the GPU
-machine:
+Kernels build with nvcc and run only on an NVIDIA GPU (sm_90a); every test
+here carries the ``cuda`` marker and, without a card, skips (the fixture
+decides, at run time). On the GPU machine:
 
     python -m pytest tests/test_torch_port_kernels.py -q
 """
@@ -10,10 +10,13 @@ import pytest
 import torch
 
 from imfnet_tpu_torch.match.nn_kernel import flash_nn, nn_plain
-from imfnet_tpu_torch.sparse.conv_kernel import gather_gemm, gather_gemm_plain
+from imfnet_tpu_torch.sparse.conv_kernel import (TC_TILES, ConvPlan, conv_plan,
+                                                 gather_gemm, gather_gemm_plain, run_plan)
 from imfnet_tpu_torch.sparse.quant_kernel import (INVALID_KEY, sorted_compact,
                                                   sorted_compact_plain)
 from imfnet_tpu_torch.sparse.word_map_kernel import word_match, word_match_plain
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -30,27 +33,148 @@ def _map(gen, n_in, n_out, k=27, miss=0.6):
     return torch.where(drop, -1, nbr).to(torch.int32).contiguous()
 
 
+def _prefix_map(gen, n_in, n_out):
+    """Live rows first, then dead rows to the end, as in each pyramid level
+    (a compacted prefix of its capacity): whole tiles at the end are dead."""
+    nbr = _map(gen, n_in, n_out)
+    nbr[n_out // 3:] = -1
+    return nbr
+
+
+def _one_offset_map(gen, n_in, n_out):
+    """Only the centre offset is ever live: every tile walks one offset."""
+    nbr = torch.full((n_out, 27), -1, dtype=torch.int32, device="cuda")
+    nbr[:, 13] = _map(gen, n_in, n_out, k=1, miss=0.3)[:, 0]
+    return nbr
+
+
+MAPS = {"random": _map, "live prefix": _prefix_map, "one offset": _one_offset_map}
+
 # the ten (cin, cout) pairs of the main path's convs, and a cin that is not a
 # power of two
 SHAPES = [(32, 32), (64, 64), (128, 128), (256, 256), (32, 64), (64, 128),
           (128, 256), (256, 128), (256, 64), (128, 64), (48, 40)]
 
 
+def _variant_launches():
+    return gather_gemm.launches_tc, gather_gemm.launches_scalar
+
+
+@pytest.mark.parametrize("kind", list(MAPS))
 @pytest.mark.parametrize("cin,cout", SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_gather_gemm_matches_plain(gen, cin, cout, dtype):
-    """Both sum exact products in f32, in another order: 1e-4 relative."""
+def test_gather_gemm_matches_plain(gen, cin, cout, dtype, kind):
+    """Both sum exact products in f32, in another order: 1e-4 relative.
+    900 output rows are no multiple of any tile, and the plan splits each
+    of these shapes over offsets (few tiles). bf16 takes the tensor-core
+    variant, f32 the scalar one; dead rows are exactly 0 and two calls
+    give bit-equal output."""
     x = torch.randn((700, cin), generator=gen, device="cuda").to(dtype)
     w = (torch.randn((27, cin, cout), generator=gen, device="cuda") * 0.05).to(dtype)
-    nbr = _map(gen, 700, 900)
+    nbr = MAPS[kind](gen, 700, 900)
     nbr[5] = -1
     nbr[-70:] = -1
+    plan = conv_plan(900, cin, cout, 27, dtype)
+    assert plan.variant == ("tc" if dtype == torch.bfloat16 else "scalar")
+    assert plan.variant == "scalar" or plan.split > 1
+    before = _variant_launches()
+    out = gather_gemm(x, nbr, w)
+    again = gather_gemm(x, nbr, w)
+    ref = gather_gemm_plain(x, nbr, w)
+    torch.cuda.synchronize()
+    moved = tuple(a - b for a, b in zip(_variant_launches(), before))
+    assert moved == ((2, 0) if plan.variant == "tc" else (0, 2))
+    dead = (nbr < 0).all(dim=1)
+    assert dead[5] and dead[-70:].all()
+    assert (out[dead] == 0).all()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=1e-4 * max(1.0, ref.abs().max().item()))
+
+
+@pytest.mark.parametrize("bm,bn,bk", sorted(TC_TILES))
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_gather_gemm_every_tile_and_split(gen, bm, bn, bk, split):
+    """Every tensor-core instance the kernel has, at an explicit plan, on a
+    live-prefix map with a ragged last tile."""
+    x = torch.randn((3000, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((27, 64, 136), generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    nbr = _prefix_map(gen, 3000, 2500)
+    plan = ConvPlan("tc", bm, bn, bk, split)
+    out = run_plan(x, nbr, w, plan)
+    again = run_plan(x, nbr, w, plan)
+    ref = gather_gemm_plain(x, nbr, w)
+    torch.cuda.synchronize()
+    assert (out[(nbr < 0).all(dim=1)] == 0).all()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=1e-4 * max(1.0, ref.abs().max().item()))
+
+
+def test_gather_gemm_unsplit_at_level0_size(gen):
+    """A level-0-sized call: enough tiles, so the plan does not split."""
+    x = torch.randn((40000, 32), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((27, 32, 32), generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    nbr = _prefix_map(gen, 40000, 65536)
+    assert conv_plan(65536, 32, 32, 27, torch.bfloat16).split == 1
     out = gather_gemm(x, nbr, w)
     ref = gather_gemm_plain(x, nbr, w)
     torch.cuda.synchronize()
-    assert (out[5] == 0).all() and (out[-70:] == 0).all()
+    assert (out[(nbr < 0).all(dim=1)] == 0).all()
     torch.testing.assert_close(out, ref, rtol=0,
                                atol=1e-4 * max(1.0, ref.abs().max().item()))
+
+
+@pytest.mark.parametrize("k_vol,tile", [(125, (128, 64)), (343, (32, 32))])
+def test_gather_gemm_wide_kernels(gen, k_vol, tile):
+    """k5 (125 offsets) keeps the k3 tile of a 256-wide conv; k7 (343)
+    narrows it until the map block fits shared memory. Both take tensor
+    cores and match the plain version."""
+    x = torch.randn((500, 256), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((k_vol, 256, 256), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    nbr = _map(gen, 500, 600, k=k_vol, miss=0.8)
+    nbr[-100:] = -1
+    plan = conv_plan(600, 256, 256, k_vol, torch.bfloat16)
+    assert plan.variant == "tc" and (plan.bn, plan.bk) == tile
+    before = _variant_launches()
+    out = gather_gemm(x, nbr, w)
+    again = gather_gemm(x, nbr, w)
+    ref = gather_gemm_plain(x, nbr, w)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_variant_launches(), before)) == (2, 0)
+    assert (out[-100:] == 0).all()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=1e-4 * max(1.0, ref.abs().max().item()))
+
+
+@pytest.mark.parametrize("case", ["cin 20", "misaligned x"])
+def test_gather_gemm_scalar_for_bf16_it_cannot_tile(gen, case):
+    """bf16 with a width that is no multiple of 8, or an x that is not
+    16-byte aligned, takes the scalar variant."""
+    cin = 20 if case == "cin 20" else 32
+    if case == "misaligned x":
+        buf = torch.randn((700 * cin + 1,), generator=gen, device="cuda")
+        x = buf.to(torch.bfloat16)[1:].view(700, cin)
+        assert x.data_ptr() % 16 != 0
+    else:
+        x = torch.randn((700, cin), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((27, cin, 24), generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+    nbr = _map(gen, 700, 900)
+    before = _variant_launches()
+    out = gather_gemm(x, nbr, w)
+    ref = gather_gemm_plain(x, nbr, w)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_variant_launches(), before)) == (0, 1)
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=1e-4 * max(1.0, ref.abs().max().item()))
+
+
+def test_gather_gemm_refuses_a_plan_that_does_not_fit(gen):
+    x = torch.randn((50, 32), generator=gen, device="cuda")
+    w = torch.randn((27, 32, 32), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="does not fit"):
+        run_plan(x, _map(gen, 50, 60), w, ConvPlan("tc", 64, 64, 32, 1))
 
 
 def test_gather_gemm_counts_launches(gen):
