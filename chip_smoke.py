@@ -18,8 +18,9 @@ Phases, each printed as one JSON line:
             variant), 2 (kernel B) and no C or D per pair
   grid_pipeline  the same pair and weights through the packed-grid path,
             PairRegistrar(compact_impl="kernel", map_impl="banded"): the
-            same measurements; launches must be 1 (kernel C), 10 (kernel
-            D), 20 (A, all tensor-core) and 2 (B) per pair, and its voxel
+            same measurements; launches must be 1 (kernel C), 1 (kernel D:
+            one grouped launch for the pyramid's ten maps), 20 (A, all
+            tensor-core) and 2 (B) per pair, and its voxel
             table and every kernel map must equal the default path's bit
             for bit, its descriptors within 1e-5
   kernel    kernel A (sparse-conv gather-GEMM) at every conv shape of the
@@ -29,12 +30,20 @@ Phases, each printed as one JSON line:
             keys (and on them doubled, so that every run has a duplicate,
             with enough slots and with too few), and kernel D
             (word-table match) at each of the grid
-            path's 10 banded maps, each against its plain PyTorch version
+            path's 10 banded maps and on all ten in one grouped launch, as
+            the path makes it, each against its plain PyTorch version
             on the same inputs: max error vs the stated tolerance (C and D
             exact), kernel / plain / library ms (CUDA events) and the
-            roofline bound; A, C and D, whose calls take microseconds, are
+            roofline bound; the kernels, whose calls take microseconds, are
             timed as CUDA-graph replays (their eager event timing, bound
-            by the host's launch rate, is kept as eager_ms). Kernel A also
+            by the host's launch rate, is kept as eager_ms), and
+            launch_floor_ms is an empty kernel's replay. Kernel B also
+            reports its plan (tile, split), that two calls are bit-equal,
+            ragged sizes, ties and all-invalid references against the
+            plain version, and a sweep of every built tile and split at the
+            main path's shape with the plan's choice beside the best, and
+            the SM clock and power while it runs back to back.
+            Kernel A also
             reports its plan (variant, tile, split), that two calls are
             bit-equal and dead rows exactly 0, and dense_gemm_ms: one
             torch.matmul of the pre-gathered [n_out, 27*cin] bf16 matrix by
@@ -50,7 +59,9 @@ Phases, each printed as one JSON line:
   paths     pair latency of both paths, interleaved on the same host
   profile   torch.profiler over three pairs: device-busy ms per pair, the
             device's idle share against the unprofiled wall time, kernel
-            launches per pair and the top kernels by device time
+            launches per pair, the top kernels by device time, and the
+            device ms and launches per pair of each CUDA kernel of csrc/ in
+            place on the path
   grid_profile  the same for the packed-grid path
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -66,7 +77,8 @@ import torch
 
 from imfnet_tpu_torch.data.synthetic import synthetic_pair
 from imfnet_tpu_torch.eval.registration import sample_keypoints_segment
-from imfnet_tpu_torch.match.nn_kernel import flash_nn, nn_plain
+from imfnet_tpu_torch.match.nn_kernel import (MAX_SPLIT, NN_TILES, NNPlan, flash_nn,
+                                                nn_plain, nn_plan, run_plan)
 from imfnet_tpu_torch.pipeline import N_PAD_MAX, PairRegistrar, bench_config
 from imfnet_tpu_torch.sparse.conv_kernel import (TC_TILES, conv_plan, gather_gemm,
                                                  gather_gemm_plain)
@@ -75,7 +87,8 @@ from imfnet_tpu_torch.sparse.grid import (cell_keys, compact_words, level_tables
 from imfnet_tpu_torch.sparse.kernel_map import coarse_levels_fit
 from imfnet_tpu_torch.sparse.coords import row_mask
 from imfnet_tpu_torch.sparse.quant_kernel import sorted_compact, sorted_compact_plain
-from imfnet_tpu_torch.sparse.word_map_kernel import word_match, word_match_plain
+from imfnet_tpu_torch.sparse.word_map_kernel import (empty_launch, word_match_many,
+                                                     word_match_plain)
 from imfnet_tpu_torch.train.step import level_capacities
 from imfnet_tpu_torch.utils import cuda_build
 
@@ -120,15 +133,19 @@ REF_BF16_MIN_COS = 0.999
 # every kernel wrapper's launch counter, kernel A's counts per variant, and
 # the launches per pair each path must make
 KERNELS = {"sparse_conv_gather_gemm": gather_gemm, "flash_nn": flash_nn,
-           "sorted_compact": sorted_compact, "word_match": word_match}
+           "sorted_compact": sorted_compact, "word_match": word_match_many}
 A_VARIANTS = {"sparse_conv_gather_gemm.tc": "launches_tc",
               "sparse_conv_gather_gemm.scalar": "launches_scalar"}
 DEFAULT_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
                     "sorted_compact": 0, "word_match": 0,
                     "sparse_conv_gather_gemm.tc": 20,
                     "sparse_conv_gather_gemm.scalar": 0}
+# the CUDA kernels of csrc/ by name, as the profiler reports them
+PORT_CUDA_KERNELS = ("gather_gemm_tc", "gather_gemm_kernel", "nn_transpose_kernel",
+                     "flash_nn_kernel", "count_starts", "scatter_starts",
+                     "word_match_kernel")
 GRID_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
-                 "sorted_compact": 1, "word_match": 10,
+                 "sorted_compact": 1, "word_match": 1,
                  "sparse_conv_gather_gemm.tc": 20,
                  "sparse_conv_gather_gemm.scalar": 0}
 
@@ -165,10 +182,8 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters=20):
-    """Mean device ms per call of fn, `iters` calls captured in one CUDA
-    graph and replayed: no host time between launches, so kernels of a few
-    microseconds are not timed at the host's enqueue rate."""
+def capture(fn, iters):
+    """A CUDA graph of `iters` calls of fn, warmed up on a side stream."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -181,13 +196,24 @@ def graph_ms(fn, iters=20):
             fn()
     graph.replay()
     torch.cuda.synchronize()
+    return graph
+
+
+def replay_ms(graph):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end)
+
+
+def graph_ms(fn, iters=20):
+    """Mean device ms per call of fn, `iters` calls captured in one CUDA
+    graph and replayed: no host time between launches, so kernels of a few
+    microseconds are not timed at the host's enqueue rate."""
+    return replay_ms(capture(fn, iters)) / iters
 
 
 def host_ms(fn, iters):
@@ -349,9 +375,114 @@ def phase_kernel_a(pyr, gen):
     }
 
 
+def nn_compare(name, q, r, v, plan=None, same_index=True):
+    """Kernel B (in ``plan``, else the plan of its shape) against the plain
+    version on one input: d² within NN_D2_ATOL, every choice a valid
+    reference whose exact (f64) distance is within NN_D2_ATOL of the plain
+    choice's, two calls bit-equal, and with ``same_index`` equal indices;
+    (0, +inf) where no reference is valid."""
+    plan = plan or nn_plan(q.shape[0], r.shape[0], q.shape[1])
+    i_k, d_k = run_plan(q, r, v, plan)
+    i_2, d_2 = run_plan(q, r, v, plan)
+    i_p, d_p = nn_plain(q, r, v)
+    torch.cuda.synchronize()
+    bit_equal = torch.equal(i_k, i_2) and torch.equal(d_k, d_2)
+    diff = torch.where(d_k == d_p, torch.zeros_like(d_k), (d_k - d_p).abs())
+    err = float(diff.max()) if diff.numel() else 0.0
+    mismatched = int((i_k != i_p).sum())
+    any_valid = r.shape[0] > 0 and (v is None or bool(v.any()))
+    if any_valid:
+        q64, r64 = q.double(), r.double()
+        exact_k = ((q64 - r64[i_k.long()]) ** 2).sum(1)
+        exact_p = ((q64 - r64[i_p.long()]) ** 2).sum(1)
+        choice_gap = float((exact_k - exact_p).abs().max())
+        chose_valid = v is None or bool(v[i_k.long()].all())
+    else:
+        choice_gap = 0.0
+        chose_valid = bool((i_k == 0).all()) and bool(torch.isinf(d_k).all())
+    if not (err <= NN_D2_ATOL and choice_gap <= NN_D2_ATOL and chose_valid and bit_equal):
+        raise AssertionError(f"kernel B disagrees on {name} ({plan}): d2 err {err}, "
+                             f"choice gap {choice_gap}, valid choices {chose_valid}, "
+                             f"two calls bit-equal {bit_equal}")
+    if same_index and mismatched:
+        raise AssertionError(f"kernel B: {mismatched} indices differ on {name} ({plan})")
+    return {"max_abs_err": err, "tol": NN_D2_ATOL, "choice_gap": choice_gap,
+            "index_mismatches": mismatched, "bit_equal": bit_equal}
+
+
+NN_EDGE_SIZES = (1, 31, 129, 4999, 5003)
+
+
+def nn_edge_cases(gen):
+    """What only the card can show of kernel B: ragged sizes, ties, all or
+    the last tile's references invalid, at D = 32 and 3, each against the
+    plain version with equal indices."""
+    checked = []
+    for d in (32, 3):
+        for n in NN_EDGE_SIZES:
+            for m in NN_EDGE_SIZES:
+                q = torch.randn((n, d), generator=gen, device="cuda")
+                r = torch.randn((m, d), generator=gen, device="cuda")
+                v = torch.rand((m,), generator=gen, device="cuda") > 0.1
+                # a null mask where n < m
+                nn_compare(f"ragged {n}x{m}x{d}", q, r, None if n < m else v)
+        checked.append(f"ragged n, m in {list(NN_EDGE_SIZES)}, d {d}")
+        q = torch.randn((5000, d), generator=gen, device="cuda")
+        r = torch.randn((5000, d), generator=gen, device="cuda")
+        # the first half of the references twice: the kernel must take the
+        # first copy, as the plain version on the half alone does
+        half = r[:2500].contiguous()
+        i_k, _ = flash_nn(q, torch.cat([half, half]), None)
+        i_p, _ = nn_plain(q, half, None)
+        if not torch.equal(i_k, i_p):
+            raise AssertionError(f"kernel B: ties do not go to the lowest index (d {d})")
+        none = torch.zeros((5000,), dtype=torch.bool, device="cuda")
+        nn_compare(f"all invalid, d {d}", q, r, none)
+        head = torch.arange(5000, device="cuda") < 4992   # tile 39 of 128: none valid
+        nn_compare(f"last tile invalid, d {d}", q, r, head)
+        checked += [f"ties, d {d}", f"all invalid, d {d}", f"last tile invalid, d {d}"]
+    return checked
+
+
+def nn_sweep(q, r, v):
+    """Every built tile x split of kernel B at the main path's shape: held
+    to the plain version, graph-timed, the plan's choice beside the best."""
+    plan = nn_plan(q.shape[0], r.shape[0], q.shape[1])
+    rows = []
+    for bq, br, threads in sorted(NN_TILES):
+        for split in range(1, MAX_SPLIT + 1):
+            p = NNPlan(bq, br, threads, split)
+            nn_compare(f"sweep {p}", q, r, v, plan=p, same_index=False)
+            rows.append({"tile": [bq, br], "threads": threads, "split": split,
+                         "blocks": p.blocks(q.shape[0]),
+                         "ms": graph_ms(lambda: run_plan(q, r, v, p))})
+    best = min(rows, key=lambda e: e["ms"])
+    mine = next(e for e in rows if (*e["tile"], e["threads"], e["split"]) == tuple(plan))
+    emit({"phase": "kernel", "kernel": "flash_nn", "sweep": rows, "plan": mine,
+          "best": best, "n": q.shape[0], "m": r.shape[0], "d": q.shape[1]})
+
+
+def clocks_under_load(fn, seconds=1.0):
+    """nvidia-smi's SM clock, its maximum and the power drawn while `fn`
+    replays back to back for about `seconds`: whether the card holds the
+    clock its peak rates assume."""
+    graph = capture(fn, 20)
+    t0 = time.perf_counter()
+    for _ in range(int(seconds * 1e3 / replay_ms(graph)) + 1):   # queued, not waited for
+        graph.replay()
+    time.sleep(max(0.0, seconds / 2 - (time.perf_counter() - t0)))   # read mid-way
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip()
+    torch.cuda.synchronize()
+    return smi
+
+
 def phase_kernel_b(kd0, ok0, kd1, ok1, gen):
     """Kernel B vs plain on the main path's descriptors (both directions),
-    and on Gaussian inputs of the same shape, where indices must be equal."""
+    and on Gaussian inputs of the same shape, where indices must be equal;
+    then the cases of ``nn_edge_cases`` and the sweep of ``nn_sweep``."""
     entries = []
     n, d = kd0.shape
     gq = torch.randn((n, d), generator=gen, device="cuda")
@@ -361,23 +492,9 @@ def phase_kernel_b(kd0, ok0, kd1, ok1, gen):
              ("gaussian d32", gq, gr, gv),
              ("gaussian d3", gq[:, :3].contiguous(), gr[:, :3].contiguous(), gv)]
     for name, q, r, v in cases:
-        i_k, d_k = flash_nn(q, r, v)
-        i_p, d_p = nn_plain(q, r, v)
-        torch.cuda.synchronize()
-        err = float((d_k - d_p).abs().max())
-        # the kernel's choice must be a nearest valid ref: its exact (f64)
-        # distance within NN_D2_ATOL of the plain choice's
-        q64, r64 = q.double(), r.double()
-        exact_k = ((q64 - r64[i_k.long()]) ** 2).sum(1)
-        exact_p = ((q64 - r64[i_p.long()]) ** 2).sum(1)
-        choice_gap = float((exact_k - exact_p).abs().max())
-        mismatched = int((i_k != i_p).sum())
-        if err > NN_D2_ATOL or choice_gap > NN_D2_ATOL or not bool(v[i_k.long()].all()):
-            raise AssertionError(f"kernel B disagrees on {name}: d2 err {err}, "
-                                 f"choice gap {choice_gap}")
-        if name.startswith("gaussian") and mismatched:
-            raise AssertionError(f"kernel B: {mismatched} indices differ on {name}")
+        held = nn_compare(name, q, r, v, same_index=name.startswith("gaussian"))
         m = r.shape[0]
+        plan = nn_plan(n, m, q.shape[1])
         ops = 2.0 * n * m * q.shape[1]
         nbytes = (q.numel() + r.numel()) * 4 + m + n * 8
         vmask = ~v
@@ -386,10 +503,11 @@ def phase_kernel_b(kd0, ok0, kd1, ok1, gen):
             dist = torch.cdist(q, r)
             return dist.masked_fill(vmask[None, :], float("inf")).min(dim=1)
 
-        entry = {"case": name, "n": n, "m": m, "d": q.shape[1],
-                 "max_abs_err": err, "tol": NN_D2_ATOL, "choice_gap": choice_gap,
-                 "index_mismatches": mismatched,
-                 "ms": cuda_ms(lambda: flash_nn(q, r, v), 20),
+        entry = {"case": name, "n": n, "m": m, "d": q.shape[1], **held,
+                 "tile": [plan.bq, plan.br], "threads": plan.threads, "split": plan.split,
+                 "blocks": plan.blocks(n), "cuda_kernels_per_call": 2,
+                 "ms": graph_ms(lambda: flash_nn(q, r, v)),
+                 "eager_ms": cuda_ms(lambda: flash_nn(q, r, v), 20),
                  "plain_ms": cuda_ms(lambda: nn_plain(q, r, v), 5),
                  "library_ms": cuda_ms(library, 5),
                  "bound_ms": max(ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
@@ -397,15 +515,23 @@ def phase_kernel_b(kd0, ok0, kd1, ok1, gen):
                  else "bytes"}
         emit({"phase": "kernel", "kernel": "flash_nn", **entry})
         entries.append(entry)
+    emit({"phase": "kernel", "kernel": "flash_nn", "checked": nn_edge_cases(gen)})
+    nn_sweep(kd0, kd1, ok1)
+    emit({"phase": "kernel", "kernel": "flash_nn",
+          "sm_clock_max_clock_power_under_load":
+              clocks_under_load(lambda: flash_nn(kd0, kd1, ok1))})
     main = entries[:2]
+    total = lambda k: sum(e[k] for e in main)  # noqa: E731
     return {
         "name": "flash_nn", "route": "cuda", "source": "imfnet_tpu_torch/csrc/flash_nn.cu",
         "replaces": "imfnet_tpu/match/pallas_nn.py:54",
-        "unit": "per pair: both NN directions of register_kp",
+        "unit": "per pair: both NN directions of register_kp (two CUDA kernels "
+                "per launch)",
+        "tile": main[0]["tile"], "threads": main[0]["threads"], "split": main[0]["split"],
         "max_abs_err": max(e["max_abs_err"] for e in entries),
-        "ms": sum(e["ms"] for e in main), "plain_ms": sum(e["plain_ms"] for e in main),
-        "bound_ms": sum(e["bound_ms"] for e in main), "bound_by": main[0]["bound_by"],
-        "library_ms": sum(e["library_ms"] for e in main),
+        "ms": total("ms"), "eager_ms": total("eager_ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"), "bound_by": main[0]["bound_by"],
+        "library_ms": total("library_ms"),
     }
 
 
@@ -459,24 +585,30 @@ def phase_kernel_c(reg, pair):
 def phase_kernel_d(reg, q):
     """Kernel D vs plain at each of the 10 banded maps of the bench pair's
     packed-grid pyramid, on the word tables and queries that
-    build_pyramid_grid hands it."""
+    build_pyramid_grid hands it: each map alone (one problem a launch), and
+    all ten in one grouped launch, as the path makes it; the kernel's time
+    per pair is the grouped launch's."""
     c = reg.config
     caps = level_capacities(q.sv.n_padded, tuple(c.level_capacity_divisors))
     origins, tables = level_tables(q.sv.coords, q.sv.num_valid, q.spec, caps)
     valid = [row_mask(t.shape[0], n) for t, n in tables]
     wtabs = [compact_words(t, v, origins, q.spec, lvl)
              for lvl, ((t, _), v) in enumerate(zip(tables, valid))]
-    entries = []
+    launch_floor_ms = graph_ms(empty_launch)
+    entries, problems, refs = [], [], []
     for name, lvl, tl, k, mode in GRID_MAPS:
         qk, _ = word_queries(origins, tables[lvl][0], valid[lvl], q.spec,
                              table_level=tl, kernel_size=k, mode=mode)
         wt = wtabs[tl]
         keys, payload = wt.wkeys, wt.payload
-        out = word_match(keys, payload, qk)
+        problem = (keys, payload, wt.n_words, qk)
+        out = word_match_many([problem])[0]
         ref = word_match_plain(keys, payload, qk)
         torch.cuda.synchronize()
         if not torch.equal(out, ref):
             raise AssertionError(f"kernel D disagrees with its plain version at {name}")
+        problems.append(problem)
+        refs.append(ref)
         m = keys.shape[0]
         flat = qk.reshape(-1)
 
@@ -490,21 +622,49 @@ def phase_kernel_d(reg, q):
         entry = {"map": name, "rows": qk.shape[0], "columns": qk.shape[1],
                  "table": m, "table_used": used,
                  "max_abs_err": float((out - ref).abs().max()), "tol": 0,
-                 "ms": graph_ms(lambda: word_match(keys, payload, qk)),
-                 "eager_ms": cuda_ms(lambda: word_match(keys, payload, qk), 20),
+                 "ms": graph_ms(lambda: word_match_many([problem])),
+                 "eager_ms": cuda_ms(lambda: word_match_many([problem]), 20),
                  "plain_ms": graph_ms(lambda: word_match_plain(keys, payload, qk)),
                  "library_ms": graph_ms(library),
                  "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes"}
         emit({"phase": "kernel", "kernel": "word_match", **entry})
         entries.append(entry)
+    before = word_match_many.launches
+    outs = word_match_many(problems)
+    torch.cuda.synchronize()
+    if word_match_many.launches != before + 1:
+        raise AssertionError("kernel D: the grouped call is not one launch")
+    for (name, *_), out, ref in zip(GRID_MAPS, outs, refs):
+        if not torch.equal(out, ref):
+            raise AssertionError(f"kernel D's grouped launch disagrees with the "
+                                 f"plain version at {name}")
+    # where the level-0 k5 map's time goes: the same queries with no table
+    # entry in use (the stream alone: queries in, zeros out), and one key for
+    # every query (every search and load hits the same lines)
+    keys, payload, n_words, qk = problems[0]
+    none_used = torch.zeros_like(n_words)
+    one_key = torch.full_like(qk, int(keys[int(n_words) // 2]))
+    emit({"phase": "kernel", "kernel": "word_match", "map": GRID_MAPS[0][0],
+          "stream_only_ms": graph_ms(lambda: word_match_many([(keys, payload, none_used, qk)])),
+          "one_key_ms": graph_ms(lambda: word_match_many([(keys, payload, n_words, one_key)])),
+          "ms": entries[0]["ms"], "bound_ms": entries[0]["bound_ms"]})
     total = lambda k: sum(e[k] for e in entries)  # noqa: E731
+    grouped = {"maps": len(problems), "launches": 1, "max_abs_err": 0.0, "tol": 0,
+               "ms": graph_ms(lambda: word_match_many(problems)),
+               "eager_ms": cuda_ms(lambda: word_match_many(problems), 20),
+               "per_map_ms_sum": total("ms"), "launch_floor_ms": launch_floor_ms,
+               "bound_ms": total("bound_ms"), "bound_by": "bytes"}
+    emit({"phase": "kernel", "kernel": "word_match", "grouped": grouped})
     return {
         "name": "word_match", "route": "cuda",
         "source": "imfnet_tpu_torch/csrc/word_match.cu",
         "replaces": "imfnet_tpu/sparse/pallas_word_map.py:122",
-        "unit": "per pair: the 10 banded maps of one grid pyramid",
+        "unit": "per pair: the 10 banded maps of one grid pyramid in one "
+                "grouped launch",
         "max_abs_err": max(e["max_abs_err"] for e in entries),
-        "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+        "ms": grouped["ms"], "eager_ms": grouped["eager_ms"],
+        "per_map_ms_sum": total("ms"), "launch_floor_ms": launch_floor_ms,
+        "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
         "bound_by": "bytes",
         # yardstick only: searchsorted + one gather reads the first matching
         # entry and does not add the companion
@@ -718,11 +878,16 @@ def phase_profile(reg, pair, wall_ms_per_pair, phase="profile", n_pairs=3):
         raise AssertionError("profile: the trace holds no device kernels")
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / n_pairs
     top = sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:15]
+    # the port's own CUDA kernels in place on the path: [ms, launches] per pair
+    own = {name: [sum(e.device_time_total for e in kernels if name in e.key) / 1e3 / n_pairs,
+                  sum(e.count for e in kernels if name in e.key) / n_pairs]
+           for name in PORT_CUDA_KERNELS}
     emit({"phase": phase, "pairs": n_pairs,
           "device_busy_ms_per_pair": busy_ms,
           "wall_ms_per_pair_unprofiled": wall_ms_per_pair,
           "device_idle_share": 1 - busy_ms / wall_ms_per_pair,
           "kernel_launches_per_pair": sum(e.count for e in kernels) / n_pairs,
+          "port_kernels_ms_and_launches_per_pair": own,
           "top_kernels_ms_per_pair": [
               [e.key[:90], e.device_time_total / 1e3 / n_pairs, e.count / n_pairs]
               for e in top]})

@@ -1,7 +1,8 @@
 """Nearest-neighbour search: descriptor NN, mutual NN, radius match.
 
-``nn_auto`` is the one entry: kernel B (``match.nn_kernel``) for CUDA
-tensors, its plain blocked version for CPU tensors.
+``nn_auto`` is the one entry: kernel B (``match.nn_kernel.flash_nn``) for
+CUDA tensors, in the tile and cluster split that ``match.nn_kernel.nn_plan``
+gives the call's shape, its plain blocked version for CPU tensors.
 """
 from __future__ import annotations
 

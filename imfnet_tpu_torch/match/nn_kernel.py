@@ -5,17 +5,89 @@ For each query, the nearest valid reference and the squared distance
 ``max(|q|² + |r|² − 2 q·r, 0)``; invalid references are never chosen, ties go
 to the lowest index, and with no valid reference the result is (0, +inf).
 Replaces ``imfnet_tpu/match/pallas_nn.py::nn_pallas``.
+
+The kernel gives a block of ``threads`` a ``bq × br`` tile of queries ×
+references, each thread an 8 × 8 (or 4-wide) micro-tile of f32 dots in
+registers, streams the reference tiles through a ``cp.async`` ring, and
+splits a query tile's references over the ``split`` blocks of a thread-block
+cluster, whose bests merge by (distance, lowest index). ``nn_plan`` chooses tile and split from the shape;
+``flash_nn`` is the port's entry point and ``run_plan`` launches a given
+plan, for ``chip_smoke.py``'s sweep and the card tests.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from imfnet_tpu_torch.utils import cuda_build
 
 KERNEL_DIMS = (3, 32)
+
+# The plan, chosen from chip_smoke.py's sweep of every tile and split at
+# 5000 x 5000 x 32 on the H100 (PERF.md):
+NN_TILE = (64, 128, 128)  # queries x references of a block's tile, its threads
+TARGET_BLOCKS = 200       # one wave: three such blocks fit each of the 132 SMs
+MAX_SPLIT = 8             # portable thread-block cluster size
+NN_STAGES = 3             # cp.async ring depth of the kernel
+SCRATCH_PAD = 128         # rows of the kernel's k-major scratch are padded to this
+SMEM_LIMIT = 227 * 1024   # the H100's shared memory per block (opt-in)
+# (bq, br, threads) of the instances in csrc/flash_nn.cu: 128 threads with
+# 8 x 8 dots each, or 256 threads with 8 x 8, 8 x 4, 4 x 8 or 4 x 4
+NN_TILES = frozenset({(64, 128, 128), (128, 128, 256), (128, 64, 256), (64, 128, 256),
+                      (64, 64, 256)})
+
+
+class NNPlan(NamedTuple):
+    """How kernel B runs one call: a block's tile of queries × references,
+    its threads, and the number of blocks of one cluster that share a query
+    tile's references."""
+    bq: int
+    br: int
+    threads: int
+    split: int
+
+    def blocks(self, n: int) -> int:
+        return -(-n // self.bq) * self.split
+
+    def query_ranges(self, n: int) -> List[Tuple[int, int]]:
+        """[start, stop) of the queries of each query tile."""
+        return [(s, min(s + self.bq, n)) for s in range(0, n, self.bq)]
+
+    def part_ranges(self, m: int) -> List[Tuple[int, int]]:
+        """[start, stop) of the references of each part: part p walks the
+        reference tiles [p·T/split, (p+1)·T/split) of the T tiles, as the
+        kernel does. A part may be empty."""
+        tiles = -(-m // self.br)
+        return [(min(p * tiles // self.split * self.br, m),
+                 min((p + 1) * tiles // self.split * self.br, m))
+                for p in range(self.split)]
+
+
+def nn_smem_bytes(bq: int, br: int, d: int) -> int:
+    """Shared memory of one block (``NnTile::smem_bytes`` in
+    ``csrc/flash_nn.cu``): the query tile and the ring of reference tiles,
+    each row k-major with its squared norms, the ring no smaller than the
+    16 per-thread bests of every query row that reuse it, and one (d, index)
+    per query."""
+    ring = max(NN_STAGES * (d + 1) * br, 32 * bq)
+    return ((d + 1) * bq + ring + 2 * bq) * 4
+
+
+def nn_plan(n: int, m: int, d: int) -> NNPlan:
+    """Tile and split for a call, from the shape alone (no device read).
+
+    The tile is ``NN_TILE``. ``n`` queries give ``ceil(n / bq)`` query
+    tiles, 40 at the main path's 5000, too few for 132 SMs; the references
+    are split over the fewest blocks (at most ``MAX_SPLIT`` and the number
+    of reference tiles) that give ``TARGET_BLOCKS`` blocks. ``d`` does not
+    enter: both widths the kernel serves fit shared memory at every tile."""
+    bq, br, threads = NN_TILE
+    q_tiles = max(1, -(-n // bq))
+    r_tiles = max(1, -(-m // br))
+    split = min(-(-TARGET_BLOCKS // q_tiles), MAX_SPLIT, r_tiles)
+    return NNPlan(bq, br, threads, split)
 
 
 def nn_plain(queries: torch.Tensor, refs: torch.Tensor,
@@ -62,29 +134,48 @@ def _check(q: torch.Tensor, r: torch.Tensor, valid: Optional[torch.Tensor]) -> N
 def flash_nn(queries: torch.Tensor, refs: torch.Tensor,
              ref_valid: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(idx int32[N], d2 f32[N]). CUDA tensors launch kernel B (D must be 3
-    or 32; the launch is counted in ``flash_nn.launches``); CPU tensors run
-    the plain version."""
+    """(idx int32[N], d2 f32[N]). CUDA tensors launch kernel B in the plan
+    ``nn_plan`` gives the shape (D must be 3 or 32; the launch is counted in
+    ``flash_nn.launches``); CPU tensors run the plain version."""
     _check(queries, refs, ref_valid)
     if queries.device.type == "cpu":
         return nn_plain(queries, refs, ref_valid)
+    return run_plan(queries, refs, ref_valid,
+                    nn_plan(queries.shape[0], refs.shape[0], queries.shape[1]))
+
+
+def run_plan(queries: torch.Tensor, refs: torch.Tensor,
+             ref_valid: Optional[torch.Tensor], plan: NNPlan
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B on CUDA tensors in the given plan, counted in
+    ``flash_nn.launches``. A plan the kernel has no instance for raises. The
+    port calls it through ``flash_nn``; ``chip_smoke.py``'s sweep and the
+    card tests call it with plans of their own."""
+    _check(queries, refs, ref_valid)
     if queries.device.type != "cuda":
-        raise ValueError(f"flash_nn: unsupported device {queries.device}")
+        raise ValueError(f"flash_nn: unsupported device {queries.device}; kernel B "
+                         f"runs on CUDA tensors")
     n, d = queries.shape
     m = refs.shape[0]
     if d not in KERNEL_DIMS:
         raise ValueError(f"flash_nn: the kernel serves D in {KERNEL_DIMS}, got {d}")
+    if ((plan.bq, plan.br, plan.threads) not in NN_TILES or not 1 <= plan.split <= MAX_SPLIT
+            or nn_smem_bytes(plan.bq, plan.br, d) > SMEM_LIMIT):
+        raise ValueError(f"flash_nn: no kernel instance for {plan} at D = {d}")
     out_i = torch.empty((n,), dtype=torch.int32, device=queries.device)
     out_d = torch.empty((n,), dtype=torch.float32, device=queries.device)
     if n == 0:
         return out_i, out_d
+    rows = sum(-(-k // SCRATCH_PAD) * SCRATCH_PAD for k in (n, m))
+    scratch = torch.empty(((d + 1) * rows,), dtype=torch.float32, device=queries.device)
     lib = _library()
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_nn(
             queries.data_ptr(), refs.data_ptr(),
             None if ref_valid is None else ref_valid.data_ptr(),
-            out_i.data_ptr(), out_d.data_ptr(), n, m, d, stream)
+            scratch.data_ptr(), out_i.data_ptr(), out_d.data_ptr(), n, m, d,
+            plan.bq, plan.br, plan.threads, plan.split, stream)
     cuda_build.check(rc, "flash_nn")
     flash_nn.launches += 1
     return out_i, out_d
@@ -96,5 +187,5 @@ flash_nn.launches = 0
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("flash_nn")
     lib.flash_nn.restype = ctypes.c_int
-    lib.flash_nn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.flash_nn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return lib

@@ -16,10 +16,12 @@ Level tables are in scan order, so the row of an occupied cell is
 and its successor in the same (x, y) column) answers every z-offset of a
 kernel column. ``map_impl="packed"`` reads the windows from a dense table
 over the whole extent (``pack_level``); ``map_impl="banded"`` from the
-compact table of occupied words (``compact_words``) through kernel D
-(``sparse.word_map_kernel``), one launch per map. Both give the tables of
-the search builder (``sparse.kernel_map.build_pyramid``) for in-extent
-inputs, which is all ``quantize_grid`` produces.
+compact table of occupied words (``compact_words``) through kernel D's
+grouped entry (``sparse.word_map_kernel.word_match_many``): the queries of
+all of a pyramid's maps are built first and matched in one launch. Both
+give the tables of the search builder
+(``sparse.kernel_map.build_pyramid``) for in-extent inputs, which is all
+``quantize_grid`` produces.
 
 32-bit occupancy words are held in int64 (torch's uint32 lacks most bitwise
 ops) and stored in int32 tables as their two's-complement bit pattern, as
@@ -28,7 +30,7 @@ the JAX package's ``astype(int32)`` does; torch has no popcount, so
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +39,7 @@ from imfnet_tpu_torch.sparse.coords import PAD_COORD, SparseVoxels, compact_firs
 from imfnet_tpu_torch.sparse.kernel_map import CoordinatePyramid, LevelMaps
 from imfnet_tpu_torch.sparse.quant_kernel import (INVALID_KEY, sorted_compact,
                                                   sorted_compact_plain)
-from imfnet_tpu_torch.sparse.word_map_kernel import word_match
+from imfnet_tpu_torch.sparse.word_map_kernel import word_match_many
 
 HALO = 2          # cells of slack on every axis: offset queries never bounds-check
 WORD_PAD = 0x7FFFFFFF   # word key of compact-table padding (sorts last)
@@ -446,16 +448,27 @@ def word_queries(origins: torch.Tensor, coords: torch.Tensor, valid: torch.Tenso
     return torch.where(cols.ok_xy, cols.w0, -2).to(torch.int32), cols
 
 
-def banded_word_t4(wtab: CompactWords, q: torch.Tensor) -> torch.Tensor:
-    """t4 int32[N, ncol, 4]: the (bits, bits1, rank, rank1) window of every
-    anchor word key in ``q``, zeros where the word is absent (kernel D).
+def banded_word_t4_many(pairs: Sequence[Tuple[CompactWords, torch.Tensor]]
+                        ) -> List[torch.Tensor]:
+    """[t4 int32[N, ncol, 4]] for every (table, q): the (bits, bits1, rank,
+    rank1) window of every anchor word key in ``q``, zeros where the word is
+    absent. All pairs go to kernel D's grouped entry ``word_match_many``
+    together (one launch for up to 16), which searches each table's
+    ``n_words`` entries in use.
 
-    Raises when the table's keys are not sorted. On a CUDA tensor the check
-    is a device-side assert (no host read), which fails the process's CUDA
-    context at a later synchronize; the port's scan-ordered tables always
-    pass it."""
-    torch._assert_async(wtab.sorted_ok, "compact word table is not sorted")
-    return word_match(wtab.wkeys, wtab.payload, q.contiguous())
+    Raises when a table's keys are not sorted, checked once per table. On a
+    CUDA tensor the check is a device-side assert (no host read), which
+    fails the process's CUDA context at a later synchronize; the port's
+    scan-ordered tables always pass it."""
+    for wtab in {id(wtab): wtab for wtab, _ in pairs}.values():
+        torch._assert_async(wtab.sorted_ok, "compact word table is not sorted")
+    return word_match_many([(wtab.wkeys, wtab.payload, wtab.n_words, q.contiguous())
+                            for wtab, q in pairs])
+
+
+def banded_word_t4(wtab: CompactWords, q: torch.Tensor) -> torch.Tensor:
+    """``banded_word_t4_many`` for one table and one query tensor."""
+    return banded_word_t4_many([(wtab, q)])[0]
 
 
 def banded_offset_map(wtab: CompactWords, origins: torch.Tensor, coords: torch.Tensor,
@@ -515,13 +528,13 @@ def build_pyramid_grid(
 
     Requires level-0 valid rows unique, in scan order and inside the static
     extent (``quantize_grid`` guarantees it; ``fits_grid`` checks on the
-    host). ``map_impl`` is "banded" (compact word tables, kernel D, 10
-    launches for 4 levels and conv1 k5) or "packed" (dense tables). The
-    level-0 k3 map is the inner column subset of the k5 map, and the down
-    maps are built before the same and up maps. The 2-cell halo holds
-    kernels up to 5 wide; the JAX builder also takes wider conv1 kernels
-    and then misses neighbours at the extent's edge, so the port refuses
-    them."""
+    host). ``map_impl`` is "banded" (compact word tables; the queries of
+    all maps, 10 for 4 levels and conv1 k5, are built first and go to kernel
+    D's grouped entry in one launch) or "packed" (dense tables). The
+    level-0 k3 map is the inner column subset of the k5 map. The 2-cell
+    halo holds kernels up to 5 wide; the JAX builder also takes wider conv1
+    kernels and then misses neighbours at the extent's edge, so the port
+    refuses them."""
     if conv1_kernel_size not in (3, 5):
         raise ValueError(f"build_pyramid_grid: conv1_kernel_size must be 3 or 5 "
                          f"(the {HALO}-cell halo), got {conv1_kernel_size}")
@@ -531,36 +544,41 @@ def build_pyramid_grid(
     origins, tables = level_tables(coords, num_valid, spec, level_capacity[:num_levels])
     valid = [row_mask(c.shape[0], n) for c, n in tables]
 
+    # every map of the pyramid: name -> (table level, query level, kernel, mode)
+    maps = {"k5": (0, 0, conv1_kernel_size, "same")}
+    for lvl in range(1, num_levels):
+        maps[f"down{lvl}"] = (lvl - 1, lvl, 3, "down")
+        maps[f"same{lvl}"] = (lvl, lvl, 3, "same")
+        maps[f"up{lvl - 1}"] = (lvl, lvl - 1, 3, "up")
+
+    def call(fn, m, *lead):
+        table_level, lvl, kernel_size, mode = m
+        return fn(*lead, origins, tables[lvl][0], valid[lvl], spec,
+                  table_level=table_level, kernel_size=kernel_size, mode=mode)
+
     if map_impl == "packed":
         packs = [pack_level(c, v, origins, spec, lvl)
                  for lvl, ((c, _), v) in enumerate(zip(tables, valid))]
-
-        def make_map(table_level, lvl, kernel_size, mode):
-            return packed_offset_map(packs[table_level], origins, tables[lvl][0],
-                                     valid[lvl], spec, table_level=table_level,
-                                     kernel_size=kernel_size, mode=mode)
+        nbr = {name: call(packed_offset_map, m, packs[m[0]]) for name, m in maps.items()}
     elif map_impl == "banded":
         wtabs = [compact_words(c, v, origins, spec, lvl)
                  for lvl, ((c, _), v) in enumerate(zip(tables, valid))]
-
-        def make_map(table_level, lvl, kernel_size, mode):
-            return banded_offset_map(wtabs[table_level], origins, tables[lvl][0],
-                                     valid[lvl], spec, table_level=table_level,
-                                     kernel_size=kernel_size, mode=mode)
+        queries = {name: call(word_queries, m) for name, m in maps.items()}
+        t4s = banded_word_t4_many([(wtabs[maps[name][0]], q)
+                                   for name, (q, _) in queries.items()])
+        nbr = {name: _column_rows(cols, t4)
+               for (name, (_, cols)), t4 in zip(queries.items(), t4s)}
     else:
         raise ValueError(f"build_pyramid_grid: map_impl must be 'banded' or "
                          f"'packed', got {map_impl!r}")
 
-    k5 = make_map(0, 0, conv1_kernel_size, "same")
+    k5 = nbr["k5"]
     if conv1_kernel_size == 3:
         k3_l0 = k5
     else:
         k3_l0 = k5[:, torch.tensor(K3_IN_K5, device=k5.device)]
-    downs = [None] + [make_map(lvl - 1, lvl, 3, "down") for lvl in range(1, num_levels)]
     levels = []
-    for lvl in range(num_levels):
-        c, n = tables[lvl]
-        k3 = k3_l0 if lvl == 0 else make_map(lvl, lvl, 3, "same")
-        up = make_map(lvl + 1, lvl, 3, "up") if lvl < num_levels - 1 else None
-        levels.append(LevelMaps(c, n, k3, downs[lvl], up))
+    for lvl, (c, n) in enumerate(tables):
+        levels.append(LevelMaps(c, n, k3_l0 if lvl == 0 else nbr[f"same{lvl}"],
+                                nbr.get(f"down{lvl}"), nbr.get(f"up{lvl}")))
     return CoordinatePyramid(tuple(levels), k5)

@@ -25,7 +25,8 @@ from imfnet_tpu_torch.sparse.coords import PAD_COORD
 from imfnet_tpu_torch.sparse.kernel_map import build_pyramid
 from imfnet_tpu_torch.sparse.quant_kernel import (INVALID_KEY, sorted_compact,
                                                   sorted_compact_plain)
-from imfnet_tpu_torch.sparse.word_map_kernel import word_match, word_match_plain
+from imfnet_tpu_torch.sparse.word_map_kernel import (query_group, word_match,
+                                                     word_match_many, word_match_plain)
 from imfnet_tpu_torch.train.step import make_pyramid_fn
 
 EXTENT = (64, 64, 64)
@@ -176,6 +177,121 @@ def test_word_match_plain_equals_pallas_kernel(lvl, kernel, mode):
     assert (ref != 0).any() and (ref[-1] == 0).all()
     # the wrapper takes the plain version for CPU tensors
     np.testing.assert_array_equal(word_match(_t(keys), payload, _t(q)).numpy(), ref)
+
+
+def _word_problem(rng, m, shape, used=None, negative=False):
+    """A sorted table of ``m`` entries (keys once or twice, the second of a
+    pair with a zero payload; entries from ``used`` on are padding) and
+    queries of ``shape``: present, absent and negative keys."""
+    base = np.cumsum(rng.randint(1, 4, m))
+    keys = np.repeat(base, rng.randint(1, 3, m))[:m].astype(np.int32)
+    payload = rng.randint(-(1 << 31), 1 << 31, (m, 4)).astype(np.int32)
+    payload[1:][keys[1:] == keys[:-1]] = 0
+    n_words = None
+    if used is not None:
+        keys[used:] = tgrid.WORD_PAD
+        payload[used:] = 0
+        n_words = torch.tensor(used, dtype=torch.int32)
+    hi = int(keys[:m if used is None else used].max(initial=5)) + 3
+    q = rng.randint(-3, hi, shape).astype(np.int32)
+    if negative:
+        q = -1 - np.abs(q)
+    return _t(keys), _t(payload), n_words, _t(q)
+
+
+MANY_CASES = {
+    "k5 map": dict(m=900, shape=(300, 25), used=700),
+    "k3 map": dict(m=500, shape=(257, 9)),
+    "flat": dict(m=300, shape=(1000,), used=1),
+    "no queries": dict(m=64, shape=(0, 9), used=10),
+    "empty table": dict(m=0, shape=(40, 9)),
+    "nothing in use": dict(m=300, shape=(33, 25), used=0),
+    "all keys negative": dict(m=128, shape=(50, 9), negative=True),
+    "three axes": dict(m=400, shape=(20, 4, 9), used=400),
+}
+
+
+def test_word_match_many_on_cpu_equals_plain_per_problem():
+    rng = np.random.RandomState(11)
+    problems = [_word_problem(rng, **kw) for kw in MANY_CASES.values()]
+    before = word_match_many.launches
+    outs = word_match_many(problems)
+    assert word_match_many.launches == before      # no kernel on the CPU
+    assert len(outs) == len(problems)
+    for name, (keys, payload, _, q), out in zip(MANY_CASES, problems, outs):
+        assert out.dtype == torch.int32 and out.shape == (*q.shape, 4), name
+        assert torch.equal(out, word_match_plain(keys, payload, q)), name
+        # every key twice at most, so no hit beyond the first two entries
+        assert torch.equal(out, _word_match_loop(keys, payload, q)), name
+    assert (outs[list(MANY_CASES).index("all keys negative")] == 0).all()
+    assert (outs[0] != 0).any()
+    assert word_match_many([]) == []
+
+
+def _word_match_loop(keys, payload, q):
+    """The definition, entry by entry: Σ payload[j] over keys[j] == q."""
+    table = {}
+    for k, p in zip(keys.tolist(), payload.tolist()):
+        table[k] = [(a + b + (1 << 31)) % (1 << 32) - (1 << 31)
+                    for a, b in zip(table.get(k, [0, 0, 0, 0]), p)]
+    flat = [table.get(k, [0, 0, 0, 0]) if k >= 0 else [0, 0, 0, 0]
+            for k in q.reshape(-1).tolist()]
+    return torch.tensor(flat, dtype=torch.int32).reshape(*q.shape, 4)
+
+
+@pytest.mark.parametrize("shape,group", [((65536, 25), 5), ((100, 9), 3), ((20, 4, 9), 3),
+                                         ((0, 9), 3), ((1000,), 1), ((7, 3), 1),
+                                         ((5, 49), 1), ((9,), 1), ((25,), 1)])
+def test_query_group_follows_the_map_columns(shape, group):
+    """A kernel map's 9 or 25 columns are k groups of k dy columns; any other
+    query tensor is matched one query a lane."""
+    assert query_group(shape) == group
+    assert int(np.prod(shape)) % group ** 2 == 0
+
+
+def test_word_match_many_checks_every_problem():
+    rng = np.random.RandomState(12)
+    keys, payload, _, q = _word_problem(rng, m=64, shape=(8, 9))
+    with pytest.raises(TypeError):
+        word_match_many([(keys, payload, None, q), (keys, payload, None, q.long())])
+    with pytest.raises(ValueError, match="n_words"):
+        word_match_many([(keys, payload, torch.tensor(3), q)])
+    with pytest.raises(ValueError, match="n_words"):
+        word_match_many([(keys, payload, torch.tensor([3], dtype=torch.int32), q)])
+    with pytest.raises(ValueError, match="share a device"):
+        word_match_many([(keys, payload, None, q),
+                         (keys.to("meta"), payload.to("meta"), None, q.to("meta"))])
+
+
+@pytest.mark.parametrize("conv1_kernel_size,num_levels,maps", [(5, 4, 10), (3, 4, 10),
+                                                               (5, 2, 4)])
+def test_banded_build_calls_the_grouped_entry_once(monkeypatch, conv1_kernel_size,
+                                                   num_levels, maps):
+    """All maps of a pyramid go to kernel D's grouped entry in one call,
+    each with its table's count of entries in use."""
+    calls = []
+
+    def counting(problems):
+        calls.append(list(problems))
+        return word_match_many(problems)
+
+    monkeypatch.setattr(tgrid, "word_match_many", counting)
+    table, n = _table(np.random.RandomState(8), 1024, 0, 300)
+    pyr = tgrid.build_pyramid_grid(_t(table), torch.tensor(n, dtype=torch.int32),
+                                   spec=SPEC_T, num_levels=num_levels,
+                                   conv1_kernel_size=conv1_kernel_size,
+                                   level_capacity=(1024, 512, 256, 256)[:num_levels],
+                                   map_impl="banded")
+    assert len(calls) == 1 and len(calls[0]) == maps
+    k2 = conv1_kernel_size ** 2
+    assert [q.shape[1] for *_, q in calls[0]] == [k2] + [9] * (maps - 1)
+    assert all(n_words is not None and n_words.dtype == torch.int32
+               for _, _, n_words, _ in calls[0])
+    assert len(pyr.levels) == num_levels
+    calls.clear()
+    tgrid.build_pyramid_grid(_t(table), torch.tensor(n, dtype=torch.int32), spec=SPEC_T,
+                             level_capacity=(1024, 512, 256, 256), map_impl="packed")
+    assert calls == []
 
 
 def _compact_case(name, rng):

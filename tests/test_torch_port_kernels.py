@@ -9,12 +9,14 @@ decides, at run time). On the GPU machine:
 import pytest
 import torch
 
-from imfnet_tpu_torch.match.nn_kernel import flash_nn, nn_plain
+from imfnet_tpu_torch.match import nn_kernel
+from imfnet_tpu_torch.match.nn_kernel import NN_TILES, NNPlan, flash_nn, nn_plain, nn_plan
 from imfnet_tpu_torch.sparse.conv_kernel import (TC_TILES, ConvPlan, conv_plan,
                                                  gather_gemm, gather_gemm_plain, run_plan)
 from imfnet_tpu_torch.sparse.quant_kernel import (INVALID_KEY, sorted_compact,
                                                   sorted_compact_plain)
-from imfnet_tpu_torch.sparse.word_map_kernel import word_match, word_match_plain
+from imfnet_tpu_torch.sparse.word_map_kernel import (MAX_PROBLEMS, word_match,
+                                                     word_match_many, word_match_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -211,6 +213,89 @@ def test_flash_nn_rejects_other_widths(gen):
         flash_nn(torch.zeros((4, 8), device="cuda"), torch.zeros((5, 8), device="cuda"))
 
 
+def _assert_nn_equal(q, r, valid, plan=None):
+    """Kernel B (in ``plan``, else its shape's) equals the plain version:
+    indices exactly (Gaussian inputs have no near-ties), d² within 1e-4
+    (the same f32 terms summed in another order), two calls bit-equal."""
+    plan = plan or nn_plan(q.shape[0], r.shape[0], q.shape[1])
+    i_k, d_k = nn_kernel.run_plan(q, r, valid, plan)
+    i_2, d_2 = nn_kernel.run_plan(q, r, valid, plan)
+    i_p, d_p = nn_plain(q, r, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(i_k, i_2) and torch.equal(d_k, d_2)
+    assert torch.equal(i_k, i_p)
+    finite = torch.isfinite(d_p)
+    assert torch.equal(torch.isfinite(d_k), finite)
+    torch.testing.assert_close(d_k[finite], d_p[finite], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("bq,br,threads", sorted(NN_TILES))
+@pytest.mark.parametrize("split", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("d", [32, 3])
+def test_flash_nn_every_tile_and_split(gen, bq, br, threads, split, d):
+    """Every instance the kernel has, at an explicit plan, on sizes that are
+    no multiple of a tile; with 1500 references the wider splits of a
+    128-wide tile leave parts with two tiles or one."""
+    q = torch.randn((700, d), generator=gen, device="cuda")
+    r = torch.randn((1500, d), generator=gen, device="cuda")
+    valid = torch.rand(1500, generator=gen, device="cuda") > 0.2
+    _assert_nn_equal(q, r, valid, NNPlan(bq, br, threads, split))
+
+
+@pytest.mark.parametrize("n", [1, 31, 129, 4999, 5003])
+@pytest.mark.parametrize("m", [1, 31, 129, 4999, 5003])
+@pytest.mark.parametrize("d", [32, 3])
+def test_flash_nn_ragged_sizes(gen, n, m, d):
+    """Sizes around and below one tile, with a mask and with none; at
+    m < 128 most parts of the split have no tile at all."""
+    q = torch.randn((n, d), generator=gen, device="cuda")
+    r = torch.randn((m, d), generator=gen, device="cuda")
+    valid = torch.rand(m, generator=gen, device="cuda") > 0.1
+    _assert_nn_equal(q, r, None if n < m else valid)
+
+
+@pytest.mark.parametrize("d", [32, 3])
+def test_flash_nn_ties_go_to_the_lowest_index(gen, d):
+    """Every reference twice: both copies give bit-equal distances, and the
+    kernel takes the first, whichever thread, tile or part holds it."""
+    q = torch.randn((5000, d), generator=gen, device="cuda")
+    half = torch.randn((2500, d), generator=gen, device="cuda")
+    i_k, d_k = flash_nn(q, torch.cat([half, half]))
+    i_p, d_p = nn_plain(q, half)
+    torch.cuda.synchronize()
+    assert torch.equal(i_k, i_p)
+    torch.testing.assert_close(d_k, d_p, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["last tile", "first part", "all but the last"])
+def test_flash_nn_invalid_tiles_and_parts(gen, kind):
+    """Whole tiles and whole parts of the split without a valid reference."""
+    q = torch.randn((5000, 32), generator=gen, device="cuda")
+    r = torch.randn((5000, 32), generator=gen, device="cuda")
+    j = torch.arange(5000, device="cuda")
+    valid = {"last tile": j < 4992, "first part": j >= 1664,
+             "all but the last": j == 4999}[kind]
+    assert nn_plan(5000, 5000, 32).part_ranges(5000)[0][1] <= 1664
+    _assert_nn_equal(q, r, valid)
+
+
+def test_flash_nn_no_references(gen):
+    q = torch.randn((300, 32), generator=gen, device="cuda")
+    idx, d2 = flash_nn(q, torch.zeros((0, 32), device="cuda"))
+    torch.cuda.synchronize()
+    assert (idx == 0).all() and torch.isinf(d2).all()
+    idx, d2 = flash_nn(q[:0], q)
+    assert idx.shape == (0,) and d2.shape == (0,)
+
+
+def test_flash_nn_refuses_a_plan_without_an_instance(gen):
+    q = torch.randn((50, 32), generator=gen, device="cuda")
+    for plan in (NNPlan(256, 128, 256, 1), NNPlan(128, 128, 512, 1),
+                 NNPlan(128, 128, 256, 9), NNPlan(128, 128, 256, 0)):
+        with pytest.raises(ValueError, match="no kernel instance"):
+            nn_kernel.run_plan(q, q, None, plan)
+
+
 def _sorted_stream(gen, n, n_keys, invalid):
     key = torch.randint(0, n_keys, (n,), generator=gen, device="cuda")
     drop = torch.rand((n,), generator=gen, device="cuda") < invalid
@@ -266,14 +351,79 @@ def test_word_match_matches_plain(gen, m, shape):
     keys, payload = _word_table(gen, m)
     hi = int(keys[-1]) + 3
     q = torch.randint(-3, hi, shape, generator=gen, device="cuda", dtype=torch.int32)
-    before = word_match.launches
+    before = word_match_many.launches
     out = word_match(keys, payload, q)
     ref = word_match_plain(keys, payload, q)
     torch.cuda.synchronize()
-    assert word_match.launches == before + 1
+    assert word_match_many.launches == before + 1
     assert out.shape == (*shape, 4) and out.dtype == torch.int32
     assert torch.equal(out, ref)
     assert (out[q < 0] == 0).all()
+
+
+def _padded_table(gen, m, used):
+    """A table of ``m`` entries of which ``used`` are in use, the rest
+    padding (largest key, zero payload), and the device scalar ``used``."""
+    if m == 0:
+        return (torch.zeros((0,), dtype=torch.int32, device="cuda"),
+                torch.zeros((0, 4), dtype=torch.int32, device="cuda"),
+                torch.tensor(0, dtype=torch.int32, device="cuda"))
+    keys, payload = _word_table(gen, m)
+    keys[used:] = 0x7FFFFFFF
+    payload[used:] = 0
+    return keys, payload, torch.tensor(used, dtype=torch.int32, device="cuda")
+
+
+# (table entries, entries in use or None for all, query shape): map-shaped
+# queries (k5, k3: one thread a (row, dx) group), flat and odd shapes (one
+# thread a query), no query, an empty table, a table with nothing in use
+MANY_CASES = [(262144, 70000, (65536, 25)), (40000, None, (21845, 9)),
+              (2048, 2048, (512, 9)), (5000, 1, (1000,)), (64, 10, (0, 9)),
+              (0, None, (40, 9)), (300, 0, (33, 25)), (1, None, (7, 3)),
+              (4096, 3000, (50, 4, 9))]
+
+
+def _many_problems(gen, cases):
+    problems = []
+    for m, used, shape in cases:
+        keys, payload, n_words = _padded_table(gen, m, m if used is None else used)
+        hi = int(keys[:int(n_words)].max()) + 3 if int(n_words) else 10
+        q = torch.randint(-3, hi, shape, generator=gen, device="cuda", dtype=torch.int32)
+        # sorted rows too, as a map's dy columns are: the gallop's usual case
+        if len(shape) == 2 and shape[0]:
+            q[::2] = q[::2].sort(dim=1).values
+        problems.append((keys, payload, None if used is None else n_words, q))
+    return problems
+
+
+def test_word_match_many_matches_plain(gen):
+    """One launch for all problems; each equals its plain version."""
+    problems = _many_problems(gen, MANY_CASES)
+    before = word_match_many.launches
+    outs = word_match_many(problems)
+    torch.cuda.synchronize()
+    assert word_match_many.launches == before + 1
+    for (keys, payload, _, q), out in zip(problems, outs):
+        assert out.shape == (*q.shape, 4) and out.dtype == torch.int32
+        assert torch.equal(out, word_match_plain(keys, payload, q))
+
+
+def test_word_match_many_takes_more_problems_than_one_launch_holds(gen):
+    cases = [(512 + 7 * i, None, (40 + i, 9)) for i in range(2 * MAX_PROBLEMS + 3)]
+    problems = _many_problems(gen, cases)
+    before = word_match_many.launches
+    outs = word_match_many(problems)
+    torch.cuda.synchronize()
+    assert word_match_many.launches == before + 3
+    for (keys, payload, _, q), out in zip(problems, outs):
+        assert torch.equal(out, word_match_plain(keys, payload, q))
+
+
+def test_word_match_many_without_queries_launches_nothing(gen):
+    keys, payload = _word_table(gen, 64)
+    before = word_match_many.launches
+    (out,) = word_match_many([(keys, payload, None, keys[:0].reshape(0, 9))])
+    assert out.shape == (0, 9, 4) and word_match_many.launches == before
 
 
 def test_word_match_rejects_wrong_dtypes(gen):
