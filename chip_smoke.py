@@ -63,6 +63,27 @@ Phases, each printed as one JSON line:
             device ms and launches per pair of each CUDA kernel of csrc/ in
             place on the path
   grid_profile  the same for the packed-grid path
+  train_kernel  the kernels at the shapes of the training step, on a side of
+            the full-width training batch: kernel A at the 20 dX calls of a
+            backward (the forward's convs through their inverse maps, cin and
+            cout swapped; tensor-core variant asserted, two calls bit-equal)
+            and at conv1 (k 125, cin 1: scalar variant), kernel B at the
+            positive search's 65 536 x 65 536 x 3 with the other pair's
+            references masked, and the plain dW products (no kernel) per step
+  train_reference  one training step at a small size in f32 on the card
+            against the CPU (loss, every gradient, every updated parameter
+            and buffer within the stated tolerances), then 8 steps at lr
+            0.03 on the card, which must end below the first loss
+  train     3 warm-up and 10 timed steps of ResUNetBN2C at full width
+            (bench_config, bf16, conv1 k5 not in occupancy mode, batch of 2
+            pairs: synthetic_batch(RandomState(0), 2, 200k points, n_pad
+            65 536), SGD with momentum and weight decay): steps/s, median
+            step ms, every loss finite, the share of voxels with a positive
+            per pair of the batch, 2 000 sampled queries of each pair against
+            an f64 brute force, kernel launches per step asserted (A 82: 80
+            tensor-core + 2 scalar; B 2; C and D 0), peak memory
+  train_profile  torch.profiler over three steps: device-busy ms per step,
+            idle share, launches per step, each csrc/ kernel in place
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; so does a machine without CUDA.
 """
@@ -75,10 +96,12 @@ import time
 import numpy as np
 import torch
 
-from imfnet_tpu_torch.data.synthetic import synthetic_pair
+from imfnet_tpu_torch.config import threedmatch_config
+from imfnet_tpu_torch.data.synthetic import synthetic_batch, synthetic_pair
 from imfnet_tpu_torch.eval.registration import sample_keypoints_segment
 from imfnet_tpu_torch.match.nn_kernel import (MAX_SPLIT, NN_TILES, NNPlan, flash_nn,
                                                 nn_plain, nn_plan, run_plan)
+from imfnet_tpu_torch.models import load_model
 from imfnet_tpu_torch.pipeline import N_PAD_MAX, PairRegistrar, bench_config
 from imfnet_tpu_torch.sparse.conv_kernel import (TC_TILES, conv_plan, gather_gemm,
                                                  gather_gemm_plain)
@@ -86,10 +109,13 @@ from imfnet_tpu_torch.sparse.grid import (cell_keys, compact_words, level_tables
                                           word_queries)
 from imfnet_tpu_torch.sparse.kernel_map import coarse_levels_fit
 from imfnet_tpu_torch.sparse.coords import row_mask
+from imfnet_tpu_torch.sparse.ops import weight_grad
 from imfnet_tpu_torch.sparse.quant_kernel import sorted_compact, sorted_compact_plain
 from imfnet_tpu_torch.sparse.word_map_kernel import (empty_launch, word_match_many,
                                                      word_match_plain)
-from imfnet_tpu_torch.train.step import level_capacities
+from imfnet_tpu_torch.train.state import create_train_state
+from imfnet_tpu_torch.train.step import (compute_correspondences, level_capacities,
+                                         make_pyramid_fn, make_train_step)
 from imfnet_tpu_torch.utils import cuda_build
 
 # H100 SXM published dense peaks (NVIDIA data sheet), used for bounds only
@@ -142,12 +168,40 @@ DEFAULT_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
                     "sparse_conv_gather_gemm.scalar": 0}
 # the CUDA kernels of csrc/ by name, as the profiler reports them
 PORT_CUDA_KERNELS = ("gather_gemm_tc", "gather_gemm_kernel", "nn_transpose_kernel",
-                     "flash_nn_kernel", "count_starts", "scatter_starts",
-                     "word_match_kernel")
+                     "flash_nn_kernel", "compact_single_pass", "word_match_kernel")
 GRID_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
                  "sorted_compact": 1, "word_match": 1,
                  "sparse_conv_gather_gemm.tc": 20,
                  "sparse_conv_gather_gemm.scalar": 0}
+
+
+# one training step: per side 20 tensor-core convs forward and their 20 dX
+# calls backward, and conv1 (k 125, cin 1) forward in the scalar variant
+# (its input needs no gradient); one positive search per pair of the batch
+TRAIN_LAUNCHES = {"sparse_conv_gather_gemm": 82, "flash_nn": 2,
+                  "sorted_compact": 0, "word_match": 0,
+                  "sparse_conv_gather_gemm.tc": 80,
+                  "sparse_conv_gather_gemm.scalar": 2}
+TRAIN_BATCH = 2          # pairs per training batch
+TRAIN_N_PAD = 65536      # voxel capacity of a batch side
+# the CPU tests' training config (tests/test_torch_port_train.py)
+SMALL_TRAIN = dict(batch_size=2, conv1_kernel_size=3, model_n_out=16,
+                   num_pos_per_batch=128, num_hn_samples_per_batch=64,
+                   max_points=2048, compute_dtype="float32")
+# card vs CPU, one f32 step: the same sums in another order. Kernel A's
+# f32 variant sums a row's 27 x cin products one after another, 2.6e-6 of
+# the output's scale from the plain product at cin 256 (measured); the batch
+# norms of the coarse levels (a few hundred rows, as many channels) pass
+# that on to the gradients some 1e4 times larger: with the plain version in
+# kernel A's place the card is within 1e-5 of the CPU, with the kernel 3e-2
+# at the worst entry of the worst tensor and 1.2e-3 over all gradients.
+TRAIN_REF_LOSS_ATOL = 1e-5
+TRAIN_REF_GRAD_L2 = 1e-2      # |g - ref| / |ref| over all gradients together
+TRAIN_REF_TENSOR_L2 = 1e-1    # the same for each gradient tensor alone
+TRAIN_REF_BUFFER_REL = 1e-4   # running statistics, of each tensor's largest entry
+# an updated parameter is p - lr (g + wd p): held to lr times the tensor's
+# gradient tolerance
+SEARCH_D2_ATOL = 2e-6         # f32 d2 of coordinates of a few metres against f64
 
 
 def emit(obj):
@@ -272,28 +326,41 @@ def bench_pair(config):
     return pair
 
 
-def conv_inputs(pyr, level, which, cin, cout, gen):
-    nbr = getattr(pyr.levels[level], which)
+def conv_inputs(pyr, level, which, cin, cout, gen, backward=False):
+    """Forward: features of the level the map gathers from, the conv's map
+    and W[27, cin, cout]. Backward, the conv's dX call: dY on the conv's own
+    level, the map's inverse (a stride-1 map itself, a down map's sibling up
+    map and the reverse) and W[27, cout, cin]."""
     src = {"k3_same": level, "down": level - 1, "up": level + 1}[which]
-    n_in = pyr.levels[src].coords.shape[0]
+    if backward:
+        inv = {"k3_same": "k3_same", "down": "up", "up": "down"}[which]
+        nbr = getattr(pyr.levels[src], inv)
+        n_in = pyr.levels[level].coords.shape[0]
+        cin, cout = cout, cin
+    else:
+        nbr = getattr(pyr.levels[level], which)
+        n_in = pyr.levels[src].coords.shape[0]
     x = torch.randn((n_in, cin), generator=gen, device="cuda").to(torch.bfloat16)
     w = (torch.randn((27, cin, cout), generator=gen, device="cuda")
          * (27 * cin) ** -0.5).to(torch.bfloat16)
     return x, nbr, w
 
 
-def phase_kernel_a(pyr, gen):
-    """Kernel A vs plain at each distinct conv call of the main path: the
-    plan it takes (the tensor-core variant, asserted), the error, dead rows
-    exactly 0 and two calls bit-equal; graph-timed kernel, plain and
-    dense_gemm_ms."""
+def phase_kernel_a(pyr, gen, backward=False):
+    """Kernel A vs plain at each distinct conv call of the main path (with
+    ``backward`` at each conv's dX call: cin and cout swapped, through the
+    inverse map): the plan it takes (the tensor-core variant, asserted), the
+    error, dead rows exactly 0 and two calls bit-equal; graph-timed kernel,
+    plain and dense_gemm_ms."""
     shapes, seen = [], {}
     for name, level, which, cin, cout in MAIN_PATH_CONVS:
         key = (level, which, cin, cout)
         if key in seen:
             seen[key]["count"] += 1
             continue
-        x, nbr, w = conv_inputs(pyr, level, which, cin, cout, gen)
+        x, nbr, w = conv_inputs(pyr, level, which, cin, cout, gen, backward)
+        if backward:
+            name, cin, cout = name + " dX", cout, cin
         n_out, n_in = nbr.shape[0], x.shape[0]
         plan = conv_plan(n_out, cin, cout, nbr.shape[1], x.dtype)
         tc_before = gather_gemm.launches_tc
@@ -352,7 +419,8 @@ def phase_kernel_a(pyr, gen):
         seen[key] = entry
         shapes.append(entry)
     for e in shapes:
-        emit({"phase": "kernel", "kernel": "sparse_conv_gather_gemm", **e})
+        emit({"phase": "train_kernel" if backward else "kernel",
+              "kernel": "sparse_conv_gather_gemm", **e})
     total = lambda k: sum(e[k] * e["count"] for e in shapes)  # noqa: E731
     ops_ms = sum(e["ops_ms"] * e["count"] for e in shapes)
     bytes_ms = sum(e["bytes_ms"] * e["count"] for e in shapes)
@@ -363,7 +431,8 @@ def phase_kernel_a(pyr, gen):
         "replaces": "imfnet_tpu/sparse/pallas_conv.py:318",
         "also_replaces": ["imfnet_tpu/sparse/pallas_conv.py:485",
                           "imfnet_tpu/sparse/pallas_conv.py:595"],
-        "unit": "per pair: the 20 convs of one forward",
+        "unit": ("per side of a training step: the 20 dX calls of one backward"
+                 if backward else "per pair: the 20 convs of one forward"),
         "variant": "tc",
         "max_abs_err": max(e["max_abs_err"] for e in shapes),
         "ms": total("ms"), "eager_ms": total("eager_ms"), "plain_ms": total("plain_ms"),
@@ -546,16 +615,33 @@ def phase_kernel_c(reg, pair):
     sk, order = torch.sort(key, stable=True)
     n, n_out = sk.shape[0], 2 * N_PAD_MAX
     sk2, order2 = torch.sort(torch.cat([key, key]), stable=True)
+    ragged = n - 2 * 2048 - 777      # ends inside a tile
     cases = {"bench": (sk, order, n_out), "doubled keys": (sk2, order2, n_out),
-             "doubled keys, overflow": (sk2, order2, n_out // 4)}
+             "doubled keys, overflow": (sk2, order2, n_out // 4),
+             "ragged n": (sk[:ragged].contiguous(), order[:ragged].contiguous(), n_out)}
     errs = []
+    refs = {}
     for name, (k_, o_, m_) in cases.items():
-        sel, count = sorted_compact(k_, o_, m_)
-        ref_sel, ref_count = sorted_compact_plain(k_, o_, m_)
-        torch.cuda.synchronize()
-        if not (torch.equal(sel, ref_sel) and torch.equal(count, ref_count)):
-            raise AssertionError(f"kernel C disagrees with its plain version: {name}")
+        refs[name] = ref_sel, ref_count = sorted_compact_plain(k_, o_, m_)
+        # two eager calls in a row: the kernel's state is not reset between
+        for _ in range(2):
+            sel, count = sorted_compact(k_, o_, m_)
+            torch.cuda.synchronize()
+            if not (torch.equal(sel, ref_sel) and torch.equal(count, ref_count)):
+                raise AssertionError(f"kernel C disagrees with its plain version: {name}")
         errs.append(float((sel - ref_sel).abs().max()))
+    # 100 replays of one captured call, whose arguments are frozen
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_sel, g_count = sorted_compact(sk, order, n_out)
+    for i in range(100):
+        g_sel.fill_(-7)
+        g_count.fill_(-7)
+        graph.replay()
+        if not (torch.equal(g_sel, refs["bench"][0]) and torch.equal(g_count, refs["bench"][1])):
+            raise AssertionError(f"kernel C: replay {i} of a captured call disagrees "
+                                 f"with the plain version")
+    cases["bench, 100 graph replays"] = None
     sel, count = sorted_compact(sk, order, n_out)
     err, runs = max(errs), int(count)
     # sk read once, order read at the run starts only, sel and count written
@@ -565,15 +651,17 @@ def phase_kernel_c(reg, pair):
              "tol": 0, "ms": graph_ms(lambda: sorted_compact(sk, order, n_out)),
              "eager_ms": cuda_ms(lambda: sorted_compact(sk, order, n_out), 20),
              "plain_ms": graph_ms(lambda: sorted_compact_plain(sk, order, n_out)),
+             "launch_floor_ms": graph_ms(empty_launch),
              "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
-             "cuda_kernels_per_call": 2}
+             "cuda_kernels_per_call": 1}
     emit({"phase": "kernel", "kernel": "sorted_compact", **entry})
     return {
         "name": "sorted_compact", "route": "cuda",
         "source": "imfnet_tpu_torch/csrc/sorted_compact.cu",
         "replaces": "imfnet_tpu/sparse/pallas_quant.py:122",
-        "unit": "per pair: one quantize (two CUDA kernels per launch)",
+        "unit": "per pair: one quantize (one CUDA kernel per launch)",
         "max_abs_err": err, "ms": entry["ms"], "plain_ms": entry["plain_ms"],
+        "launch_floor_ms": entry["launch_floor_ms"],
         "bound_ms": entry["bound_ms"], "bound_by": "bytes",
         # no single PyTorch call compacts the run starts of a sorted stream
         # to their rows without a host read (unique_consecutive syncs for
@@ -863,15 +951,23 @@ def phase_profile(reg, pair, wall_ms_per_pair, phase="profile", n_pairs=3):
     """Device time by kernel over a few pairs (torch.profiler, CUPTI). The
     idle share compares the device-busy time per pair with the unprofiled
     wall time per pair of the pipeline phase."""
+    args = (pair.xyz0, pair.xyz1, pair.image0, pair.image1, pair.T_gt, np.eye(6))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    return profile_units(lambda: reg(*args, generator=gen), wall_ms_per_pair, phase,
+                         "pair", n_pairs)
+
+
+def profile_units(run, wall_ms_per_pair, phase, unit, n_pairs):
+    """``run`` called ``n_pairs`` times under the profiler; every number is
+    per call (a pair, or a training step: ``unit``). Returns the port's own
+    kernels' [ms, launches] per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    args = (pair.xyz0, pair.xyz1, pair.image0, pair.image1, pair.T_gt, np.eye(6))
-    gen = torch.Generator(device="cuda").manual_seed(1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_pairs):
-            reg(*args, generator=gen)
+            run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not kernels:
@@ -882,15 +978,260 @@ def phase_profile(reg, pair, wall_ms_per_pair, phase="profile", n_pairs=3):
     own = {name: [sum(e.device_time_total for e in kernels if name in e.key) / 1e3 / n_pairs,
                   sum(e.count for e in kernels if name in e.key) / n_pairs]
            for name in PORT_CUDA_KERNELS}
-    emit({"phase": phase, "pairs": n_pairs,
-          "device_busy_ms_per_pair": busy_ms,
-          "wall_ms_per_pair_unprofiled": wall_ms_per_pair,
+    emit({"phase": phase, f"{unit}s": n_pairs,
+          f"device_busy_ms_per_{unit}": busy_ms,
+          f"wall_ms_per_{unit}_unprofiled": wall_ms_per_pair,
           "device_idle_share": 1 - busy_ms / wall_ms_per_pair,
-          "kernel_launches_per_pair": sum(e.count for e in kernels) / n_pairs,
-          "port_kernels_ms_and_launches_per_pair": own,
-          "top_kernels_ms_per_pair": [
+          f"kernel_launches_per_{unit}": sum(e.count for e in kernels) / n_pairs,
+          f"port_kernels_ms_and_launches_per_{unit}": own,
+          f"top_kernels_ms_per_{unit}": [
               [e.key[:90], e.device_time_total / 1e3 / n_pairs, e.count / n_pairs]
               for e in top]})
+    return own
+
+
+def train_model(cfg, device, seed=0):
+    """The config's model with seeded random weights in the training
+    configuration: conv1 as a sparse conv (no occupancy shortcut)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = load_model(cfg.model)(
+            in_channels=cfg.in_channels, out_channels=cfg.model_n_out,
+            conv1_kernel_size=cfg.conv1_kernel_size,
+            normalize_feature=cfg.normalize_feature, bn_momentum=cfg.bn_momentum,
+            compute_dtype=getattr(torch, cfg.compute_dtype))
+    return model.to(device)
+
+
+def phase_train_kernels(cfg, batch, gen):
+    """The kernels at the training step's shapes, on side 0 of the batch:
+    kernel A's 20 dX calls and conv1's scalar call, kernel B's positive
+    search, and the plain dW products of a step."""
+    with torch.no_grad():
+        pyr = make_pyramid_fn(cfg, TRAIN_N_PAD, TRAIN_BATCH)(batch.coords0, batch.n0)
+    back = phase_kernel_a(pyr, gen, backward=True)
+
+    # conv1: k = 5^3 offsets, one input channel, so the scalar variant
+    n = TRAIN_N_PAD
+    x = batch.feats0.to(torch.bfloat16)
+    w = (torch.randn((125, 1, 32), generator=gen, device="cuda") * 125 ** -0.5).to(torch.bfloat16)
+    nbr = pyr.k5_l0
+    plan = conv_plan(n, 1, 32, 125, x.dtype)
+    out, again, ref = gather_gemm(x, nbr, w), gather_gemm(x, nbr, w), gather_gemm_plain(x, nbr, w)
+    err, tol = float((out - ref).abs().max()), CONV_TOL_REL * max(1.0, float(ref.abs().max()))
+    if plan.variant != "scalar" or err > tol or not torch.equal(out, again):
+        raise AssertionError(f"kernel A at conv1: plan {plan}, err {err} > {tol}, or two "
+                             f"calls differ")
+    nnz = int((nbr >= 0).sum())
+    conv1 = {"conv": "conv1", "cin": 1, "cout": 32, "k_vol": 125, "n_out": n, "nnz": nnz,
+             "variant": plan.variant, "max_abs_err": err, "tol": tol,
+             "ms": graph_ms(lambda: gather_gemm(x, nbr, w), 5),
+             "plain_ms": graph_ms(lambda: gather_gemm_plain(x, nbr, w), 3),
+             "bound_ms": (nbr.numel() * 4 + n * 2 + n * 32 * 4) / PEAK_BYTES * 1e3,
+             "bound_by": "bytes"}
+    emit({"phase": "train_kernel", "kernel": "sparse_conv_gather_gemm", **conv1})
+
+    # kernel B as compute_correspondences calls it: side 0's voxels against
+    # side 1's, the other pair's references masked out
+    v1 = row_mask(n, batch.n1)
+    valid = v1 & (batch.coords1[:, 0] == 0)
+    q, r = batch.xyz0.contiguous(), batch.xyz1.contiguous()
+    # voxel centres on a 2.5 cm lattice: many near-ties, so the choice is
+    # held by its exact distance, not by its index
+    held = nn_compare("positive search", q, r, valid, same_index=False)
+    plan = nn_plan(n, n, 3)
+    ops, nbytes = 2.0 * n * n * 3, (q.numel() + r.numel()) * 4 + n + n * 8
+    search = {"case": "positive search, one pair of the batch", "n": n, "m": n, "d": 3,
+              **held, "tile": [plan.bq, plan.br], "split": plan.split,
+              "ms": graph_ms(lambda: flash_nn(q, r, valid), 5),
+              "plain_ms": cuda_ms(lambda: nn_plain(q, r, valid), 2, warmup=1),
+              "bound_ms": max(ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+              "bound_by": "operations"}
+    emit({"phase": "train_kernel", "kernel": "flash_nn", **search})
+
+    # dW has no kernel: a plain gather and product per conv (sparse/ops.py)
+    dw_ms = 0.0
+    for name, level, which, cin, cout in MAIN_PATH_CONVS:
+        x, nbr, _ = conv_inputs(pyr, level, which, cin, cout, gen)
+        dy = torch.randn((nbr.shape[0], cout), generator=gen, device="cuda").to(torch.bfloat16)
+        dw_ms += cuda_ms(lambda: weight_grad(x, nbr, dy), 2, warmup=1)
+    dy = torch.randn((n, 32), generator=gen, device="cuda").to(torch.bfloat16)
+    dw_ms += cuda_ms(lambda: weight_grad(batch.feats0.to(torch.bfloat16), pyr.k5_l0, dy), 2,
+                     warmup=1)
+    emit({"phase": "train_kernel", "plain": "weight_grad (dW, no kernel)",
+          "products_per_step": 42, "ms_per_side": dw_ms, "ms_per_step": 2 * dw_ms})
+    return {"backward": back, "conv1": conv1, "search": search, "dw_ms_per_step": 2 * dw_ms}
+
+
+def phase_train_reference():
+    """One training step at a small size in f32, on the card against the
+    CPU, from the same weights, batch and draws: the loss, every gradient
+    and every updated parameter and buffer. Then 8 steps at lr 0.03 on the
+    card on that batch, which must end below the first loss."""
+    cfg = threedmatch_config(**SMALL_TRAIN)
+    n_pad = cfg.max_points
+    rs = np.random.RandomState(3)
+    draws = [torch.from_numpy(rs.rand(n_pad).astype(np.float32)) for _ in range(3)]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = train_model(cfg, device, seed=1)
+        batch = synthetic_batch(np.random.RandomState(0), batch_size=2, n_points=700,
+                                n_pad=n_pad, image_hw=(24, 32), device=device)
+        state = create_train_state(model, cfg, steps_per_epoch=100)
+        grads = {}
+        hooks = [p.register_hook(lambda g, k=k: grads.__setitem__(k, g.detach().cpu()))
+                 for k, p in model.named_parameters()]
+        before = read_counts()
+        state, metrics = make_train_step(cfg)(state, batch, draws=[d.to(device) for d in draws])
+        if device == "cuda":
+            after = read_counts()
+            launched = {k: after[k] - before[k] for k in after}
+        for h in hooks:
+            h.remove()
+        runs[device] = (float(metrics["loss"]), grads,
+                        {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    (loss_g, grads_g, sd_g), (loss_c, grads_c, sd_c) = runs["cuda"], runs["cpu"]
+    # f32: every kernel-A launch takes the scalar variant; conv1's input has
+    # no gradient, so 21 forward + 20 dX a side
+    want = {"sparse_conv_gather_gemm.scalar": 82, "sparse_conv_gather_gemm.tc": 0, "flash_nn": 2}
+    if any(launched[k] != v for k, v in want.items()):
+        raise AssertionError(f"train_reference: launches {launched}, want {want}")
+    def rel_l2(keys, got, ref):
+        num = sum(float(((got[k] - ref[k]).double() ** 2).sum()) for k in keys) ** 0.5
+        return num / max(sum(float((ref[k].double() ** 2).sum()) for k in keys) ** 0.5, 1e-30)
+
+    grad_l2 = rel_l2(list(grads_c), grads_g, grads_c)
+    worst_grad = max((rel_l2([k], grads_g, grads_c), k) for k in grads_c)
+    worst_entry = max((float((grads_g[k] - grads_c[k]).abs().max())
+                       / max(float(grads_c[k].abs().max()), 1e-6), k) for k in grads_c)
+    params = dict(model.named_parameters())
+    worst_param = max((float((sd_g[k] - sd_c[k]).abs().max())
+                       / (cfg.lr * max(float(grads_c[k].norm()), 1e-6)), k) for k in params)
+    worst_buffer = max((float((sd_g[k].float() - sd_c[k].float()).abs().max())
+                        / max(float(sd_c[k].float().abs().max()), 1e-3), k)
+                       for k in sd_c if k not in params)
+    # 8 steps on the card
+    model = train_model(cfg, "cuda", seed=1)
+    batch = synthetic_batch(np.random.RandomState(0), batch_size=2, n_points=700, n_pad=n_pad,
+                            image_hw=(24, 32), device="cuda")
+    state = create_train_state(model, cfg.replace(lr=0.03), steps_per_epoch=100)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step = make_train_step(cfg)
+    losses = []
+    for _ in range(8):
+        state, metrics = step(state, batch, gen)
+        losses.append(float(metrics["loss"]))
+    emit({"phase": "train_reference", "config": SMALL_TRAIN, "loss": [loss_g, loss_c],
+          "loss_tol": TRAIN_REF_LOSS_ATOL, "gradients": len(grads_c),
+          "gradients_rel_l2": grad_l2, "gradients_rel_l2_tol": TRAIN_REF_GRAD_L2,
+          "worst_gradient_tensor_rel_l2": list(worst_grad),
+          "gradient_tensor_rel_l2_tol": TRAIN_REF_TENSOR_L2,
+          "worst_gradient_entry_of_tensor_max": list(worst_entry),
+          "worst_updated_parameter_of_lr_times_gradient_norm": list(worst_param),
+          "worst_buffer_rel_err": list(worst_buffer), "buffer_tol_rel": TRAIN_REF_BUFFER_REL,
+          "launches": launched, "eight_step_losses": losses})
+    if (abs(loss_g - loss_c) > TRAIN_REF_LOSS_ATOL or set(grads_g) != set(grads_c)
+            or grad_l2 > TRAIN_REF_GRAD_L2 or worst_grad[0] > TRAIN_REF_TENSOR_L2
+            or worst_param[0] > TRAIN_REF_TENSOR_L2 or worst_buffer[0] > TRAIN_REF_BUFFER_REL):
+        raise AssertionError("train_reference: card and CPU disagree")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train_reference: 8 steps did not lower the loss: {losses}")
+
+
+def check_positive_search(batch, radius, per_pair=2000):
+    """The positive search of every pair of the batch against an f64 brute
+    force on ``per_pair`` sampled queries: the kernel's match is the nearest
+    same-pair voxel (its exact distance within SEARCH_D2_ATOL of the least)
+    and its "ok" flag equals the brute force's, except within SEARCH_D2_ATOL
+    of the radius. Returns per pair the share of voxels with a positive and
+    the counts checked."""
+    pairs, ok = compute_correspondences(batch, radius)
+    n0 = int(batch.n0)
+    pair_of = batch.coords0[:n0, 0]
+    v1 = row_mask(batch.coords1.shape[0], batch.n1)
+    x1 = batch.xyz1.double()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = []
+    for b in range(batch.T_gt.shape[0]):
+        rows = torch.nonzero(pair_of == b)[:, 0]
+        rows = rows[torch.randperm(rows.numel(), generator=gen, device="cuda")[:per_pair]]
+        T = batch.T_gt[b].double()
+        moved = batch.xyz0[rows].double() @ T[:3, :3].T + T[:3, 3]
+        d2 = ((moved[:, None, :] - x1[None]) ** 2).sum(-1)          # [per_pair, N1] f64
+        d2 = d2.masked_fill(~(v1 & (batch.coords1[:, 0] == b))[None], float("inf"))
+        best_d, best_i = d2.min(dim=1)
+        got_i = pairs[rows, 1].long()
+        gap = float((d2[torch.arange(rows.numel()), got_i] - best_d).max())
+        rim = (best_d - radius * radius).abs() <= SEARCH_D2_ATOL
+        ok_equal = bool((ok[rows] == (best_d <= radius * radius))[~rim].all())
+        same_pair = bool((batch.coords1[got_i, 0] == b).all())
+        out.append({"pair": b, "voxels": int((pair_of == b).sum()),
+                    "share_with_positive": float(ok[:n0][pair_of == b].float().mean()),
+                    "checked": int(rows.numel()), "index_mismatches": int((got_i != best_i).sum()),
+                    "worst_d2_above_least": gap, "ok_flags_equal": ok_equal,
+                    "at_the_radius": int(rim.sum())})
+        if gap > SEARCH_D2_ATOL or not ok_equal or not same_pair:
+            raise AssertionError(f"train: the positive search of pair {b} disagrees with "
+                                 f"the f64 brute force: {out[-1]}")
+    if bool(ok[n0:].any()):
+        raise AssertionError("train: a padding row has a positive")
+    return out
+
+
+def phase_train(cfg, batch, n_warm=3, n_steps=10):
+    """Timed training steps at full width; every kernel's launches are
+    counted from 0 over the timed steps and must be TRAIN_LAUNCHES a step."""
+    model = train_model(cfg, "cuda")
+    state = create_train_state(model, cfg, steps_per_epoch=100)
+    step = make_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    for _ in range(n_warm):
+        state, metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    lat, losses = [], []
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        t = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        losses.append(metrics)              # 0-d tensors; read after the loop
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    if launches != {k: v * n_steps for k, v in TRAIN_LAUNCHES.items()}:
+        raise AssertionError(f"train: kernel launches {launches} over {n_steps} steps; "
+                             f"want {TRAIN_LAUNCHES} per step")
+    losses = [{k: float(v) for k, v in m.items()} for m in losses]
+    if not all(np.isfinite(list(m.values())).all() for m in losses):
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    after = model.state_dict()
+    moved = [k for k in before if before[k].dtype.is_floating_point
+             and not torch.equal(before[k], after[k])]
+    finite = all(bool(torch.isfinite(v).all()) for v in after.values()
+                 if v.dtype.is_floating_point)
+    n_float = sum(v.dtype.is_floating_point for v in after.values())
+    if not finite or len(moved) != n_float or state.step != n_warm + n_steps:
+        raise AssertionError(f"train: {len(moved)} of {n_float} parameters and buffers moved, "
+                             f"finite {finite}, {state.step} steps")
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30    # of the steps alone
+    radius = cfg.voxel_size * cfg.positive_pair_search_voxel_size_multiplier
+    search = check_positive_search(batch, radius)
+    emit({"phase": "train", "model": cfg.model, "compute_dtype": cfg.compute_dtype,
+          "batch_pairs": TRAIN_BATCH, "n_pad": TRAIN_N_PAD,
+          "voxels_per_side": [int(batch.n0), int(batch.n1)],
+          "steps": n_steps, "seconds": seconds, "steps_per_s": n_steps / seconds,
+          "pairs_per_s": TRAIN_BATCH * n_steps / seconds,
+          "step_ms": {"median": float(np.median(lat)), "min": min(lat), "max": max(lat)},
+          "launches": launches,
+          "launches_per_step": {k: v / n_steps for k, v in launches.items()},
+          "losses": losses, "tensors_moved": len(moved), "lr": state.optimizer.param_groups[0]["lr"],
+          "positive_search": search, "search_d2_tol": SEARCH_D2_ATOL,
+          "peak_mem_gib": peak_gib})
+    return launches, seconds / n_steps, state, step, gen
 
 
 def main():
@@ -936,7 +1277,39 @@ def main():
     # launches in the same process
     phase_paths(reg, reg_grid, pair)
     phase_profile(reg, pair, seconds_per_pair * 1e3)
-    phase_profile(reg_grid, pair, grid_seconds_per_pair * 1e3, "grid_profile")
+    own = phase_profile(reg_grid, pair, grid_seconds_per_pair * 1e3, "grid_profile")
+    if own["compact_single_pass"][1] != 1:
+        raise AssertionError(f"kernel C is not one CUDA kernel a call: {own}")
+    del reg, reg_grid, q, pyr, feats, q_grid
+
+    # ---- the training step -------------------------------------------
+    cfg = bench_config().replace(batch_size=TRAIN_BATCH)
+    batch = synthetic_batch(np.random.RandomState(0), batch_size=TRAIN_BATCH,
+                            n_points=200_000, n_pad=TRAIN_N_PAD,
+                            image_hw=(cfg.image_H, cfg.image_W))
+    train_kernels = phase_train_kernels(cfg, batch, gen)
+    phase_train_reference()
+    train_launches, seconds_per_step, state, step, step_gen = phase_train(cfg, batch)
+    profile_units(lambda: step(state, batch, step_gen), seconds_per_step * 1e3,
+                  "train_profile", "step", 3)
+    a, b = kernels[0], kernels[1]
+    a.update({"train_launches": train_launches[a["name"]],
+              "train_launches_tc": train_launches["sparse_conv_gather_gemm.tc"],
+              "train_launches_scalar": train_launches["sparse_conv_gather_gemm.scalar"],
+              "backward_max_abs_err": train_kernels["backward"]["max_abs_err"],
+              "backward_ms": train_kernels["backward"]["ms"],
+              "backward_plain_ms": train_kernels["backward"]["plain_ms"],
+              "backward_bound_ms": train_kernels["backward"]["bound_ms"],
+              "conv1_ms": train_kernels["conv1"]["ms"],
+              "conv1_plain_ms": train_kernels["conv1"]["plain_ms"],
+              "conv1_bound_ms": train_kernels["conv1"]["bound_ms"],
+              "weight_grad_plain_ms_per_step": train_kernels["dw_ms_per_step"]})
+    b.update({"train_launches": train_launches[b["name"]],
+              "search_ms": train_kernels["search"]["ms"],
+              "search_plain_ms": train_kernels["search"]["plain_ms"],
+              "search_bound_ms": train_kernels["search"]["bound_ms"]})
+    for kern in kernels[2:]:
+        kern["train_launches"] = train_launches[kern["name"]]
 
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

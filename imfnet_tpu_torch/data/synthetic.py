@@ -1,10 +1,10 @@
-"""Synthetic fragment pairs (numpy): the same arrays as
-``imfnet_tpu.data.synthetic.synthetic_pair`` for the same RandomState."""
+"""Synthetic fragment pairs and training batches (numpy): the same arrays
+as ``imfnet_tpu.data.synthetic`` for the same RandomState."""
 from __future__ import annotations
 
 import numpy as np
 
-from imfnet_tpu_torch.data.collate import VoxelizedPair, voxelize_np
+from imfnet_tpu_torch.data.collate import VoxelizedPair, collate_pairs, voxelize_np
 from imfnet_tpu_torch.geom.transforms import axis_angle_rotation
 
 
@@ -64,3 +64,19 @@ def synthetic_pair(
         image1=rng.rand(h, w, 3).astype(np.float32),
         T_gt=T,
     )
+
+
+def synthetic_batch(
+    rng: np.random.RandomState,
+    batch_size: int = 2,
+    n_points: int = 8000,
+    n_pad: int = 16384,
+    voxel_size: float = 0.025,
+    image_hw=(120, 160),
+    device=None,
+):
+    """``batch_size`` synthetic pairs collated into one padded training
+    batch on ``device`` (the card by default)."""
+    samples = [synthetic_pair(rng, n_points, voxel_size, image_hw=image_hw)
+               for _ in range(batch_size)]
+    return collate_pairs(samples, n_pad, device=device)

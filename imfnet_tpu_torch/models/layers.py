@@ -1,6 +1,8 @@
 """Sparse-voxel network modules: conv layers, masked norms, residual block.
 
-Inference only: norms use their running statistics. Parameters are f32;
+In ``eval()`` mode the norms use their running statistics; in ``train()``
+mode a batch norm normalizes with the statistics of the batch's valid rows
+and updates its running buffers in place. Parameters are f32;
 ``compute_dtype`` sets the operand type of the products, which accumulate in
 f32.
 """
@@ -9,7 +11,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from imfnet_tpu_torch.sparse.ops import masked_instancenorm, sparse_conv
+from imfnet_tpu_torch.sparse.ops import (masked_batchnorm_stats, masked_instancenorm,
+                                         sparse_conv)
 
 
 def dot_f32(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -38,7 +41,10 @@ class SparseConv(nn.Module):
         std = (kernel_volume * in_channels) ** -0.5
         nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std)
 
-    def forward(self, feats, nbr=None, out_mask=None, occupancy=False):
+    def forward(self, feats, nbr=None, out_mask=None, occupancy=False,
+                nbr_inv=None):
+        """``nbr_inv`` is the map's exact inverse, which the gradient of
+        ``feats`` runs through (``sparse.ops.sparse_conv``)."""
         dt = self.compute_dtype
         if occupancy and self.in_channels == 1:
             # occupancy-1 inputs: conv = (neighbour exists) @ W[:, 0, :]
@@ -52,39 +58,55 @@ class SparseConv(nn.Module):
                                   torch.zeros_like(out))
             return out
         return sparse_conv(feats, nbr, self.weight, bias=self.bias,
-                           out_mask=out_mask, compute_dtype=dt)
+                           out_mask=out_mask, compute_dtype=dt, nbr_inv=nbr_inv)
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over valid sparse rows with running statistics
-    (`ME.MinkowskiBatchNorm` in eval mode), eps 1e-5."""
+    """BatchNorm over valid sparse rows (`ME.MinkowskiBatchNorm`), eps 1e-5.
+    Training mode takes the batch's mean and biased variance over the valid
+    rows and moves the running buffers towards the mean and the unbiased
+    variance, torch-style: running = (1 - m) * running + m * batch."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.05):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, feats, mask):
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        out = (feats.float() - self.running_mean) * inv + self.bias
+    def forward(self, feats, mask, num_valid=None):
+        if self.training:
+            if num_valid is None:
+                num_valid = mask.sum()
+            mean, var = masked_batchnorm_stats(feats, mask, num_valid)
+            with torch.no_grad():
+                m = self.momentum
+                n = num_valid.float().clamp_min(2.0)
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * (var * n / (n - 1.0)))
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        out = (feats.float() - mean) * inv + self.bias
         return out * mask[:, None]
 
 
 class SparseNorm(nn.Module):
     """Norm factory: 'BN' (masked batch norm) or 'IN' (per-sample)."""
 
-    def __init__(self, norm_type: str, features: int):
+    def __init__(self, norm_type: str, features: int, momentum: float = 0.05):
         super().__init__()
         if norm_type not in ("BN", "IN"):
             raise ValueError(f"norm type {norm_type} not defined")
-        self.bn = MaskedBatchNorm(features) if norm_type == "BN" else None
+        self.bn = (MaskedBatchNorm(features, momentum=momentum)
+                   if norm_type == "BN" else None)
 
-    def forward(self, feats, mask, batch_ids, max_batch):
+    def forward(self, feats, mask, batch_ids, max_batch, num_valid=None):
         if self.bn is not None:
-            return self.bn(feats, mask)
+            return self.bn(feats, mask, num_valid)
         return masked_instancenorm(feats, batch_ids, mask, max_batch)
 
 
@@ -93,14 +115,19 @@ class SparseBasicBlock(nn.Module):
     (`model/residual_block.py:37-53`)."""
 
     def __init__(self, channels: int, norm_type: str = "BN",
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 bn_momentum: float = 0.05):
         super().__init__()
         self.conv0 = SparseConv(channels, channels, 27, compute_dtype=compute_dtype)
-        self.norm0 = SparseNorm(norm_type, channels)
+        self.norm0 = SparseNorm(norm_type, channels, bn_momentum)
         self.conv1 = SparseConv(channels, channels, 27, compute_dtype=compute_dtype)
-        self.norm1 = SparseNorm(norm_type, channels)
+        self.norm1 = SparseNorm(norm_type, channels, bn_momentum)
 
-    def forward(self, feats, nbr, mask, batch_ids, max_batch):
-        out = torch.relu(self.norm0(self.conv0(feats, nbr), mask, batch_ids, max_batch))
-        out = self.norm1(self.conv1(out, nbr), mask, batch_ids, max_batch)
+    def forward(self, feats, nbr, mask, batch_ids, max_batch, num_valid=None):
+        # a stride-1 map is its own exact inverse (up to the offset flip the
+        # conv backward applies)
+        out = self.conv0(feats, nbr, nbr_inv=nbr)
+        out = torch.relu(self.norm0(out, mask, batch_ids, max_batch, num_valid))
+        out = self.conv1(out, nbr, nbr_inv=nbr)
+        out = self.norm1(out, mask, batch_ids, max_batch, num_valid)
         return torch.relu(out + feats)

@@ -3,7 +3,8 @@
 
 Takes and returns NHWC (the JAX package's layout) and runs NCHW inside.
 Convolutions run in ``compute_dtype`` (their output too, like flax
-``nn.Conv(dtype=...)``); batch norms use running statistics, in f32.
+``nn.Conv(dtype=...)``); batch norms run in f32, on running statistics in
+``eval()`` mode and on the batch's in ``train()`` mode.
 """
 from __future__ import annotations
 
@@ -14,9 +15,23 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    return F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, training=False, momentum=0.0, eps=bn.eps)
+def _bn(bn: nn.BatchNorm2d, x: torch.Tensor, training: bool) -> torch.Tensor:
+    """Batch norm in f32. In training the running buffers move by
+    ``bn.momentum`` (0.1, flax's ``momentum=0.9``) towards the batch mean and
+    the *biased* batch variance, as flax ``nn.BatchNorm`` stores them;
+    ``nn.BatchNorm2d`` would store the unbiased one, so the update is made
+    here and ``F.batch_norm`` only normalizes."""
+    x = x.float()
+    if not training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, training=False, momentum=0.0, eps=bn.eps)
+    with torch.no_grad():
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        m = bn.momentum
+        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1 - m) * bn.running_var + m * var)
+    return F.batch_norm(x, None, None, bn.weight, bn.bias, training=True,
+                        momentum=0.0, eps=bn.eps)
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -42,11 +57,12 @@ class BasicBlock2D(nn.Module):
 
     def forward(self, x):
         dt = self.compute_dtype
-        out = torch.relu(_bn(self.bn1, _conv(self.conv1, x, dt)))
-        out = _bn(self.bn2, _conv(self.conv2, out, dt))
+        tr = self.training
+        out = torch.relu(_bn(self.bn1, _conv(self.conv1, x, dt), tr))
+        out = _bn(self.bn2, _conv(self.conv2, out, dt), tr)
         identity = x
         if self.down_conv is not None:
-            identity = _bn(self.down_bn, _conv(self.down_conv, x, dt))
+            identity = _bn(self.down_bn, _conv(self.down_conv, x, dt), tr)
         return torch.relu(out + identity.float())
 
 
@@ -77,7 +93,7 @@ class ResNetTrunk(nn.Module):
         """x: [B, H, W, 3] in [0, 1] → [B, H/8, W/8, widths[-1]] f32."""
         dt = self.compute_dtype
         x = x.permute(0, 3, 1, 2)
-        x = torch.relu(_bn(self.bn1, _conv(self.conv1, x, dt)))
+        x = torch.relu(_bn(self.bn1, _conv(self.conv1, x, dt), self.training))
         x = F.max_pool2d(x, 3, 2, 1).to(dt)   # pads with -inf
         for name in self.block_names:
             x = getattr(self, name)(x)

@@ -139,14 +139,16 @@ def gather_gemm_plain(x: torch.Tensor, nbr: torch.Tensor,
     """Plain version: append a zero row to ``x``, gather [N, K, Cin], one
     product with f32 accumulation (``imfnet_tpu.sparse.ops._flat_apply``).
     bf16 operands are widened to f32 before the product, so each product is
-    exact and only the f32 sums round."""
+    exact and only the f32 sums round. f64 operands (CPU only, for gradient
+    checks) give an f64 result."""
     n_in, cin = x.shape
     n_out, k = nbr.shape
     cout = w.shape[2]
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     x_ext = torch.cat([x, x.new_zeros((1, cin))], dim=0)
     idx = torch.where(nbr >= 0, nbr, torch.full_like(nbr, n_in)).long()
     g = x_ext[idx].reshape(n_out, k * cin)
-    return g.float() @ w.reshape(k * cin, cout).float()
+    return g.to(acc) @ w.reshape(k * cin, cout).to(acc)
 
 
 def _check(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor) -> None:
@@ -157,9 +159,10 @@ def _check(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor) -> None:
     if w.shape[0] != nbr.shape[1] or w.shape[1] != x.shape[1]:
         raise ValueError(f"gather_gemm: shapes disagree: x {tuple(x.shape)}, "
                          f"nbr {tuple(nbr.shape)}, w {tuple(w.shape)}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+    dtypes = _DTYPES + ((torch.float64,) if x.device.type == "cpu" else ())
+    if x.dtype not in dtypes or w.dtype != x.dtype:
         raise TypeError(f"gather_gemm: x and w must share a dtype in "
-                        f"{_DTYPES}; got {x.dtype}, {w.dtype}")
+                        f"{dtypes}; got {x.dtype}, {w.dtype}")
     if nbr.dtype != torch.int32:
         raise TypeError(f"gather_gemm: nbr must be int32, got {nbr.dtype}")
     if not (x.device == nbr.device == w.device):
@@ -171,7 +174,7 @@ def _check(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor) -> None:
 def gather_gemm(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """f32[n_out, cout]. CUDA tensors launch kernel A in the variant that
     ``conv_plan`` chooses for the call (``run_plan``); CPU tensors run the
-    plain version."""
+    plain version (which also takes f64, for gradient checks)."""
     _check(x, nbr, w)
     if x.device.type == "cpu":
         return gather_gemm_plain(x, nbr, w)

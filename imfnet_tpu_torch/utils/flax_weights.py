@@ -3,7 +3,10 @@
 ``state_dict_from_flax(variables)`` takes the flax tree
 ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy arrays (for
 example ``jax.tree_util.tree_map(np.asarray, variables)``) and returns the
-port's ``state_dict``. Nothing here imports flax or jax.
+port's ``state_dict``; ``flax_from_state_dict`` is its inverse. A flax
+gradient tree has the shape of ``params``, so
+``state_dict_from_flax({"params": grads})`` lays it beside ``param.grad``.
+Nothing here imports flax or jax.
 
 Layout changes:
 - flax ``nn.Dense`` kernels are [in, out]; ``nn.Linear.weight`` is [out, in].
@@ -18,6 +21,7 @@ Module names: ``SparseConv_i`` → ``conv{i}``, ``SparseNorm_i`` → ``norm{i}``
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
@@ -58,4 +62,46 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
             if mods[0] == "img_encoder" and leaf == "mean":
                 out[".".join(mods + ["num_batches_tracked"])] = torch.zeros(
                     (), dtype=torch.long)
+    return out
+
+
+_LEAF_BACK = {"running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var"),
+              "bias": ("params", "bias")}
+
+
+def _flax_module_name(part: str, in_block: bool, in_trunk: bool) -> str:
+    """The flax name of a port module: inside a residual block ``conv{i}`` /
+    ``norm{i}`` are flax's auto-named ``SparseConv_i`` / ``SparseNorm_i``
+    (the model's own convs and norms keep their given names), and a sparse
+    norm's ``bn`` is ``MaskedBatchNorm_0``."""
+    m = re.fullmatch(r"(conv|norm)(\d+)", part)
+    if in_block and m:
+        return ("SparseConv_" if m.group(1) == "conv" else "SparseNorm_") + m.group(2)
+    return "MaskedBatchNorm_0" if part == "bn" and not in_trunk else part
+
+
+def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+    """The flax ``{"params": ..., "batch_stats": ...}`` tree (nested dicts of
+    numpy arrays) of a port ``ResUNetIMF`` state_dict: the inverse of
+    ``state_dict_from_flax`` (``num_batches_tracked`` has no counterpart)."""
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for name, value in state_dict.items():
+        *mods, leaf = name.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        arr = value.detach().cpu().numpy()
+        if leaf == "weight":                       # a norm's scale or a kernel
+            collection, flax_leaf = "params", "scale" if arr.ndim == 1 else "kernel"
+            if arr.ndim == 4:                      # OIHW → HWIO
+                arr = arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2 and mods[0] == "attention_fusion":
+                arr = arr.T
+        else:
+            collection, flax_leaf = _LEAF_BACK[leaf]
+        in_block = mods[0].startswith("block")
+        in_trunk = mods[0] == "img_encoder"
+        node = out[collection]
+        for i, part in enumerate(mods):
+            node = node.setdefault(_flax_module_name(part, in_block and i > 0, in_trunk), {})
+        node[flax_leaf] = arr
     return out

@@ -323,6 +323,99 @@ def test_sorted_compact_matches_plain(gen, n, n_keys, invalid, n_out):
     assert torch.equal(sel, ref_sel) and torch.equal(count, ref_count)
 
 
+def _edge_stream(kind, n):
+    """A sorted stream of n rows whose runs are known by construction."""
+    rows = torch.arange(n, device="cuda")
+    if kind == "all invalid":
+        sk = torch.full((n,), INVALID_KEY, device="cuda")
+    elif kind == "one run":
+        sk = torch.full((n,), 7, device="cuda")
+    elif kind == "every row its own run":
+        sk = rows * 3
+    else:   # runs of three, the last tenth invalid
+        sk = torch.where(rows < n - n // 10, rows // 3, INVALID_KEY)
+    return sk.contiguous(), torch.flip(rows, (0,)).contiguous()
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, 5000])
+@pytest.mark.parametrize("kind", ["all invalid", "one run", "every row its own run",
+                                  "runs of three"])
+@pytest.mark.parametrize("slots", ["enough", "too few"])
+def test_sorted_compact_tile_edges(gen, n, kind, slots):
+    sk, order = _edge_stream(kind, n)
+    n_out = n + 3 if slots == "enough" else max(n // 7, 1)
+    sel, count = sorted_compact(sk, order, n_out)
+    ref_sel, ref_count = sorted_compact_plain(sk, order, n_out)
+    torch.cuda.synchronize()
+    assert torch.equal(sel, ref_sel) and torch.equal(count, ref_count)
+
+
+def test_sorted_compact_misaligned_keys(gen):
+    """Keys that start 8 bytes off a 16-byte line take the scalar loads."""
+    sk, order = _sorted_stream(gen, 5001, 900, 0.1)
+    sk, order = sk[1:], order[1:].contiguous()
+    assert sk.data_ptr() % 16 == 8 and sk.is_contiguous()
+    sel, count = sorted_compact(sk, order, 2048)
+    ref_sel, ref_count = sorted_compact_plain(sk, order, 2048)
+    assert torch.equal(sel, ref_sel) and torch.equal(count, ref_count)
+
+
+def test_sorted_compact_back_to_back_calls(gen):
+    """The scratch is never reset between calls: calls in a row on one
+    stream, at two sizes in turn, stay exact."""
+    streams = [_sorted_stream(gen, n, k, 0.2) for n, k in ((262144, 1 << 20), (5000, 300))]
+    refs = [sorted_compact_plain(sk, order, 4096) for sk, order in streams]
+    outs = [sorted_compact(*streams[i % 2], 4096) for i in range(50)]
+    torch.cuda.synchronize()
+    for i, (sel, count) in enumerate(outs):
+        assert torch.equal(sel, refs[i % 2][0]) and torch.equal(count, refs[i % 2][1]), i
+
+
+def test_sorted_compact_in_a_replayed_graph(gen):
+    """A captured call is one kernel node whose arguments are frozen; 100
+    replays, with eager calls at the same size in between, stay exact."""
+    sk, order = _sorted_stream(gen, 262144, 1 << 20, 0.3)
+    ref_sel, ref_count = sorted_compact_plain(sk, order, 65536)
+    sorted_compact(sk, order, 65536)          # warm-up: builds, leaves spares
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [sorted_compact(sk, order, 65536) for _ in range(3)]
+    for i in range(100):
+        for sel, count in outs:
+            sel.fill_(-7)
+            count.fill_(-7)
+        graph.replay()
+        if i % 10 == 0:
+            eager = sorted_compact(sk, order, 65536)
+            assert torch.equal(eager[0], ref_sel) and torch.equal(eager[1], ref_count)
+        for sel, count in outs:
+            assert torch.equal(sel, ref_sel) and torch.equal(count, ref_count), i
+
+
+def test_sorted_compact_needs_an_eager_call_before_capture(gen):
+    sk, order = _sorted_stream(gen, 7 * 1024 + 5, 100, 0.0)   # a size of its own
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="outside the capture"):
+        with torch.cuda.graph(graph):
+            sorted_compact(sk, order, 128)
+
+
+def test_sorted_compact_on_two_streams(gen):
+    """Each stream owns a scratch, so calls on two streams may overlap."""
+    sk, order = _sorted_stream(gen, 262144, 1 << 21, 0.1)
+    ref_sel, ref_count = sorted_compact_plain(sk, order, 65536)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for i in range(40):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(sorted_compact(sk, order, 65536))
+    torch.cuda.synchronize()
+    for sel, count in outs:
+        assert torch.equal(sel, ref_sel) and torch.equal(count, ref_count)
+
+
 def test_sorted_compact_rejects_wrong_dtypes(gen):
     sk, order = _sorted_stream(gen, 100, 10, 0.0)
     with pytest.raises(TypeError):
