@@ -84,19 +84,46 @@ Phases, each printed as one JSON line:
             tensor-core + 2 scalar; B 2; C and D 0), peak memory
   train_profile  torch.profiler over three steps: device-busy ms per step,
             idle share, launches per step, each csrc/ kernel in place
+  trainer   Trainer.train() at full width (bench_config: ResUNetBN2C
+            32/64/128/256, conv1 k5, bf16, divisors (1, 3, 8, 20), 65 536
+            rows a side, 2 pairs a batch, the grid pyramid that the config
+            asks for) on SyntheticPairDataset with 200k points a fragment,
+            through make_data_loader: 3 epochs of 4 steps, a validation epoch
+            of 2 pairs before the first and after each, a checkpoint an
+            epoch, written to a temporary directory. Steps/s including the
+            loader, median step ms, the loader's wait (data_timer) and its
+            share of an iteration, the ms of moving a batch to the card,
+            kernel launches per training and per validation step, peak
+            memory, each epoch's mean loss, each validation epoch's metrics,
+            the checkpoint names. Fails unless every loss is finite, the last
+            epoch's mean loss is below the first's, a training step launches
+            A 82 (80 tensor-core + 2 scalar), B 2, D 2 and C 0 and a
+            validation step A 42, B 1, D 2, a best-validation checkpoint
+            exists, and the last checkpoint loaded into a new Trainer takes a
+            next step bit-equal (loss, parameters, buffers, momentum) to the
+            first trainer's. The train_kernel phase also holds kernel D to
+            its plain version on the grid pyramid of a side of the batch
+  trained_pair  a held-out synthetic pair (a seed no training or validation
+            sample has) through PairRegistrar(state_dict=...) with the seeded
+            random weights and with the trainer's: inlier ratio, RRE, RTE,
+            accepted; reported, gated only on finite well-formed outputs
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; so does a machine without CUDA.
 """
+import glob
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from imfnet_tpu_torch.config import threedmatch_config
+from imfnet_tpu_torch.data.datasets import make_data_loader
 from imfnet_tpu_torch.data.synthetic import synthetic_batch, synthetic_pair
 from imfnet_tpu_torch.eval.registration import sample_keypoints_segment
 from imfnet_tpu_torch.match.nn_kernel import (MAX_SPLIT, NN_TILES, NNPlan, flash_nn,
@@ -105,7 +132,7 @@ from imfnet_tpu_torch.models import load_model
 from imfnet_tpu_torch.pipeline import N_PAD_MAX, PairRegistrar, bench_config
 from imfnet_tpu_torch.sparse.conv_kernel import (TC_TILES, conv_plan, gather_gemm,
                                                  gather_gemm_plain)
-from imfnet_tpu_torch.sparse.grid import (cell_keys, compact_words, level_tables,
+from imfnet_tpu_torch.sparse.grid import (GridSpec, cell_keys, compact_words, level_tables,
                                           word_queries)
 from imfnet_tpu_torch.sparse.kernel_map import coarse_levels_fit
 from imfnet_tpu_torch.sparse.coords import row_mask
@@ -116,6 +143,7 @@ from imfnet_tpu_torch.sparse.word_map_kernel import (empty_launch, word_match_ma
 from imfnet_tpu_torch.train.state import create_train_state
 from imfnet_tpu_torch.train.step import (compute_correspondences, level_capacities,
                                          make_pyramid_fn, make_train_step)
+from imfnet_tpu_torch.train.trainer import Trainer, batch_to_device
 from imfnet_tpu_torch.utils import cuda_build
 
 # H100 SXM published dense peaks (NVIDIA data sheet), used for bounds only
@@ -182,6 +210,18 @@ TRAIN_LAUNCHES = {"sparse_conv_gather_gemm": 82, "flash_nn": 2,
                   "sorted_compact": 0, "word_match": 0,
                   "sparse_conv_gather_gemm.tc": 80,
                   "sparse_conv_gather_gemm.scalar": 2}
+# a step of the trainer builds its pyramids as the config says
+# (use_grid_maps: the grid pyramid, one grouped kernel-D launch a side), and a
+# validation step runs two eval-mode forwards (conv1 as a sparse conv: 21
+# kernel-A launches a side), one descriptor search and two pyramids
+TRAINER_STEP_LAUNCHES = dict(TRAIN_LAUNCHES, word_match=2)
+TRAINER_VAL_LAUNCHES = {"sparse_conv_gather_gemm": 42, "flash_nn": 1,
+                        "sorted_compact": 0, "word_match": 2,
+                        "sparse_conv_gather_gemm.tc": 40,
+                        "sparse_conv_gather_gemm.scalar": 2}
+# the trainer phase: 3 epochs of 4 batches of 2 pairs, 2 validation pairs an epoch
+TRAINER_RUN = dict(synthetic_length=8, max_epoch=3, val_max_iter=2)
+HELD_OUT_SEED = 777_777  # no training sample (seeds 1_000_003 + 7919 i) or validation sample (i)
 TRAIN_BATCH = 2          # pairs per training batch
 TRAIN_N_PAD = 65536      # voxel capacity of a batch side
 # the CPU tests' training config (tests/test_torch_port_train.py)
@@ -879,7 +919,8 @@ def phase_reference(path="default", compute_dtype="float32", **impls):
     the match is only reported, since the nearest neighbours of descriptors
     that differ by bf16 roundings may differ."""
     cfg = bench_config().replace(compute_dtype=compute_dtype, num_rand_keypoints=400,
-                                 ransac_max_iteration=12500)
+                                 ransac_max_iteration=12500,
+                                 level_capacity_divisors=(1, 2, 4, 8))
     pair = synthetic_pair(np.random.RandomState(2), n_points=6000, image_hw=(24, 32))
     want = {"float32": [0, 20], "bfloat16": [20, 0]}[compute_dtype]
     outs = []
@@ -1041,10 +1082,19 @@ def phase_train_kernels(cfg, batch, gen):
     held = nn_compare("positive search", q, r, valid, same_index=False)
     plan = nn_plan(n, n, 3)
     ops, nbytes = 2.0 * n * n * 3, (q.numel() + r.numel()) * 4 + n + n * 8
+
+    def library(chunk=8192):
+        """cdist + min, a chunk of queries at a time (the whole distance
+        matrix would be 17 GB)."""
+        best = [torch.cdist(q[i:i + chunk], r).masked_fill(~valid[None], float("inf")).min(dim=1)
+                for i in range(0, n, chunk)]
+        return torch.cat([b.indices for b in best]), torch.cat([b.values for b in best])
+
     search = {"case": "positive search, one pair of the batch", "n": n, "m": n, "d": 3,
               **held, "tile": [plan.bq, plan.br], "split": plan.split,
               "ms": graph_ms(lambda: flash_nn(q, r, valid), 5),
               "plain_ms": cuda_ms(lambda: nn_plain(q, r, valid), 2, warmup=1),
+              "library_ms": cuda_ms(library, 3, warmup=1),
               "bound_ms": max(ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
               "bound_by": "operations"}
     emit({"phase": "train_kernel", "kernel": "flash_nn", **search})
@@ -1060,7 +1110,44 @@ def phase_train_kernels(cfg, batch, gen):
                      warmup=1)
     emit({"phase": "train_kernel", "plain": "weight_grad (dW, no kernel)",
           "products_per_step": 42, "ms_per_side": dw_ms, "ms_per_step": 2 * dw_ms})
-    return {"backward": back, "conv1": conv1, "search": search, "dw_ms_per_step": 2 * dw_ms}
+    return {"backward": back, "conv1": conv1, "search": search, "dw_ms_per_step": 2 * dw_ms,
+            "word_match": train_kernel_d(cfg, batch)}
+
+
+def train_kernel_d(cfg, batch):
+    """Kernel D as the trainer's step calls it: the ten banded maps of the
+    grid pyramid of one side of the training batch (2 pairs, the config's
+    extent) in one grouped launch, every map exactly equal to its plain
+    version; timed as a CUDA-graph replay."""
+    spec = GridSpec(extent=tuple(cfg.grid_extent), num_batches=TRAIN_BATCH)
+    caps = level_capacities(TRAIN_N_PAD, tuple(cfg.level_capacity_divisors))
+    origins, tables = level_tables(batch.coords0, batch.n0, spec, caps)
+    valid = [row_mask(t.shape[0], n) for t, n in tables]
+    wtabs = [compact_words(t, v, origins, spec, lvl)
+             for lvl, ((t, _), v) in enumerate(zip(tables, valid))]
+    problems, nbytes = [], 0
+    for name, lvl, tl, k, mode in GRID_MAPS:
+        qk, _ = word_queries(origins, tables[lvl][0], valid[lvl], spec,
+                             table_level=tl, kernel_size=k, mode=mode)
+        problems.append((wtabs[tl].wkeys, wtabs[tl].payload, wtabs[tl].n_words, qk))
+        nbytes += qk.numel() * 4 + int(wtabs[tl].n_words) * (4 + 16) + qk.numel() * 16
+    before = word_match_many.launches
+    outs = word_match_many(problems)
+    torch.cuda.synchronize()
+    if word_match_many.launches != before + 1:
+        raise AssertionError("kernel D at the training shape: not one launch")
+    plain_ms = 0.0
+    for (name, *_), (keys, payload, _, qk), out in zip(GRID_MAPS, problems, outs):
+        if not torch.equal(out, word_match_plain(keys, payload, qk)):
+            raise AssertionError(f"kernel D disagrees with its plain version at the "
+                                 f"training batch's {name}")
+        plain_ms += graph_ms(lambda: word_match_plain(keys, payload, qk), 3)
+    entry = {"case": "grid pyramid of one side of the training batch", "maps": len(problems),
+             "rows_l0": TRAIN_N_PAD, "num_batches": TRAIN_BATCH, "max_abs_err": 0.0, "tol": 0,
+             "ms": graph_ms(lambda: word_match_many(problems)),
+             "plain_ms": plain_ms, "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes"}
+    emit({"phase": "train_kernel", "kernel": "word_match", **entry})
+    return entry
 
 
 def phase_train_reference():
@@ -1082,7 +1169,8 @@ def phase_train_reference():
         hooks = [p.register_hook(lambda g, k=k: grads.__setitem__(k, g.detach().cpu()))
                  for k, p in model.named_parameters()]
         before = read_counts()
-        state, metrics = make_train_step(cfg)(state, batch, draws=[d.to(device) for d in draws])
+        state, metrics = make_train_step(cfg, map_impl="search")(
+            state, batch, draws=[d.to(device) for d in draws])
         if device == "cuda":
             after = read_counts()
             launched = {k: after[k] - before[k] for k in after}
@@ -1116,7 +1204,7 @@ def phase_train_reference():
                             image_hw=(24, 32), device="cuda")
     state = create_train_state(model, cfg.replace(lr=0.03), steps_per_epoch=100)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    step = make_train_step(cfg)
+    step = make_train_step(cfg, map_impl="search")
     losses = []
     for _ in range(8):
         state, metrics = step(state, batch, gen)
@@ -1183,7 +1271,10 @@ def phase_train(cfg, batch, n_warm=3, n_steps=10):
     counted from 0 over the timed steps and must be TRAIN_LAUNCHES a step."""
     model = train_model(cfg, "cuda")
     state = create_train_state(model, cfg, steps_per_epoch=100)
-    step = make_train_step(cfg)
+    # the search pyramid, whatever the config says: these launch gates and
+    # times stay comparable with earlier runs; the trainer phase runs the
+    # config's own
+    step = make_train_step(cfg, map_impl="search")
     gen = torch.Generator(device="cuda").manual_seed(0)
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     for _ in range(n_warm):
@@ -1232,6 +1323,182 @@ def phase_train(cfg, batch, n_warm=3, n_steps=10):
           "positive_search": search, "search_d2_tol": SEARCH_D2_ATOL,
           "peak_mem_gib": peak_gib})
     return launches, seconds / n_steps, state, step, gen
+
+
+class CountingTrainer(Trainer):
+    """The port's Trainer, reading what the run reports around its own
+    epochs: kernel launches of the training and of the validation epochs
+    apart, each training epoch's wall time, timers and mean loss, each
+    step's time to completion on the card, each validation epoch's metrics."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.counts = {"train": dict.fromkeys(TRAIN_LAUNCHES, 0),
+                       "val": dict.fromkeys(TRAIN_LAUNCHES, 0)}
+        self.steps = {"train": 0, "val": 0}
+        self.epochs, self.vals, self.step_ms = [], [], []
+        step = self.train_step
+
+        def timed_step(state, batch, generator):
+            t = time.perf_counter()
+            out = step(state, batch, generator)
+            torch.cuda.synchronize()
+            self.step_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        self.train_step = timed_step
+
+    def _count(self, kind, before, steps):
+        after = read_counts()
+        for k in after:
+            self.counts[kind][k] += after[k] - before[k]
+        self.steps[kind] += steps
+
+    def _train_epoch(self, epoch):
+        before, step0, t = read_counts(), self.state.step, time.perf_counter()
+        super()._train_epoch(epoch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        self._count("train", before, self.state.step - step0)
+        self.epochs.append({"epoch": epoch, "steps": self.state.step - step0,
+                            "seconds": seconds, "mean_loss": self.loss_meter.avg,
+                            "total_timer_avg_s": self.total_timer.avg,
+                            "data_timer_avg_s": self.data_timer.avg,
+                            "move_timer_avg_ms": self.move_timer.avg * 1e3})
+
+    def _valid_epoch(self):
+        before = read_counts()
+        out = super()._valid_epoch()
+        self._count("val", before, min(self.config.val_max_iter, len(self.val_data_loader)))
+        self.vals.append(out)
+        return out
+
+
+def phase_trainer(out_dir):
+    """The trainer at full width on SyntheticPairDataset (200k points a
+    fragment): loaders, epochs with validation, checkpoints. Fails unless
+    every loss is finite, the last epoch's mean loss is below the first's,
+    a training step launches TRAINER_STEP_LAUNCHES and a validation step
+    TRAINER_VAL_LAUNCHES, a best-validation checkpoint exists, and the last
+    checkpoint, loaded into a new Trainer, takes a next step bit-equal to
+    the first trainer's. The run's files go to ``out_dir``."""
+    cfg = bench_config().replace(
+        batch_size=TRAIN_BATCH, val_batch_size=1, dataset="SyntheticPairDataset",
+        synthetic_n_points=200_000, max_points=TRAIN_N_PAD, stat_freq=1, out_dir=out_dir,
+        **TRAINER_RUN)
+
+    def loaders(c):
+        return (make_data_loader(c, "train", c.batch_size),
+                make_data_loader(c, "val", c.val_batch_size))
+
+    trainer = CountingTrainer(cfg, *loaders(cfg))
+    trainer.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        scalars = [json.loads(ln) for ln in f]
+    losses = [r["value"] for r in scalars if r["tag"] == "train/loss"]
+    names = sorted(os.path.basename(d) for d in glob.glob(os.path.join(out_dir, "*checkpoint_*")))
+    ep = trainer.epochs
+    n_train, n_val = trainer.steps["train"], trainer.steps["val"]
+    train_s = sum(e["seconds"] for e in ep)
+    data_share = (sum(e["data_timer_avg_s"] * e["steps"] for e in ep)
+                  / sum(e["total_timer_avg_s"] * e["steps"] for e in ep))
+    per_step = {k: v / n_train for k, v in trainer.counts["train"].items()}
+    per_val = {k: v / n_val for k, v in trainer.counts["val"].items()}
+
+    # ---- resume on the card: the last checkpoint into a new Trainer
+    last = os.path.join(out_dir, max((n for n in names if n.startswith("checkpoint_")),
+                                     key=lambda n: int(n.split("_")[2])))
+    resumed = Trainer(cfg.replace(resume=last), *loaders(cfg))
+    resumed.init_state()
+    batch = batch_to_device(next(iter(make_data_loader(cfg, "val", TRAIN_BATCH))),
+                            torch.device("cuda"))
+    step = make_train_step(cfg)
+    nxt = []
+    for t in (trainer, resumed):
+        _, m = step(t.state, batch, t.generator)
+        sd = dict(t.state.model.state_dict())
+        for i, st in t.state.optimizer.state_dict()["state"].items():
+            sd[f"momentum{i}"] = st["momentum_buffer"]
+        nxt.append((m["loss"], sd))
+    (la, sa), (lb, sb) = nxt
+    differing = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    resume_equal = (resumed.start_epoch == cfg.max_epoch + 1 and resumed.state.step == n_train + 1
+                    and torch.equal(la, lb) and sa.keys() == sb.keys() and not differing)
+
+    emit({"phase": "trainer", "model": cfg.model, "compute_dtype": cfg.compute_dtype,
+          "use_grid_maps": cfg.use_grid_maps, "batch_pairs": cfg.batch_size,
+          "n_pad": cfg.max_points, "points_per_fragment": cfg.synthetic_n_points,
+          **TRAINER_RUN, "seconds": seconds, "train_steps": n_train, "val_steps": n_val,
+          "steps_per_s_with_loader": n_train / train_s,
+          "pairs_per_s_with_loader": cfg.batch_size * n_train / train_s,
+          "step_ms": {"median": float(np.median(trainer.step_ms)),
+                      "min": min(trainer.step_ms), "max": max(trainer.step_ms)},
+          "epochs": ep, "data_share_of_total": data_share,
+          "move_to_device_ms": float(np.mean([e["move_timer_avg_ms"] for e in ep])),
+          "launches": launches, "launches_per_train_step": per_step,
+          "launches_per_val_step": per_val, "peak_mem_gib": peak_gib,
+          "train_losses": losses, "mean_loss_first_epoch": ep[0]["mean_loss"],
+          "mean_loss_last_epoch": ep[-1]["mean_loss"], "validation": trainer.vals,
+          "best_val_epoch": trainer.best_val_epoch, "checkpoints": names,
+          "resume": {"checkpoint": os.path.basename(last), "next_step_bit_equal": resume_equal,
+                     "loss": [float(la), float(lb)], "tensors": len(sa),
+                     "differing": differing[:5]}})
+    if len(losses) != n_train or not np.isfinite(losses).all():
+        raise AssertionError(f"trainer: a loss is missing or not finite: {losses}")
+    if not ep[-1]["mean_loss"] < ep[0]["mean_loss"]:
+        raise AssertionError(f"trainer: the mean loss did not fall: {[e['mean_loss'] for e in ep]}")
+    if per_step != TRAINER_STEP_LAUNCHES or per_val != TRAINER_VAL_LAUNCHES:
+        raise AssertionError(f"trainer: launches per training step {per_step} (want "
+                             f"{TRAINER_STEP_LAUNCHES}), per validation step {per_val} "
+                             f"(want {TRAINER_VAL_LAUNCHES})")
+    if launches != {k: trainer.counts["train"][k] + trainer.counts["val"][k] for k in launches}:
+        raise AssertionError(f"trainer: launches outside the epochs: {launches}")
+    if not any(n.startswith("best_val_checkpoint_") for n in names):
+        raise AssertionError(f"trainer: no best-validation checkpoint in {names}")
+    if not resume_equal:
+        raise AssertionError(f"trainer: the resumed state's next step differs: {differing[:5]}, "
+                             f"loss {float(la)} vs {float(lb)}")
+    trainer.writer.close()
+    resumed.writer.close()
+    return launches, {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+
+
+def phase_trained_pair(state_dict):
+    """A held-out synthetic pair (HELD_OUT_SEED) registered through
+    PairRegistrar once with the seeded random weights and once with the
+    trainer's: inlier ratio, RRE, RTE and whether RANSAC accepted. The same
+    keypoint and RANSAC draws for both. No gate beyond finite, well-formed
+    outputs: see PERF.md for what a few training steps move."""
+    pair = synthetic_pair(np.random.RandomState(HELD_OUT_SEED), n_points=200_000)
+    out = {}
+    for name, sd in (("random", None), ("trained", state_dict)):
+        reg = PairRegistrar(state_dict=sd)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        pb = reg.prepare(pair.xyz0, pair.xyz1, pair.image0, pair.image1)
+        q = reg.quantize(pb)
+        feats = reg.forward(q, reg.pyramid(q), pb.images)
+        res = reg.match(q, feats, pair.T_gt, np.eye(6, dtype=np.float32), generator=gen)
+        torch.cuda.synchronize()
+        check_outputs(q, feats, res)
+        out[name] = {k: float(v) for k, v in res.items() if v.numel() == 1}
+    emit({"phase": "trained_pair", "held_out_seed": HELD_OUT_SEED, "points": 200_000,
+          "inlier_ratio": {k: v["ir"] for k, v in out.items()},
+          "inlier_ratio_mutual": {k: v["inlier_ratio_mutual"] for k, v in out.items()},
+          "rre_raw": {k: v["rre_raw"] for k, v in out.items()},
+          "rte_raw": {k: v["rte_raw"] for k, v in out.items()},
+          "accepted": {k: bool(v["accepted"]) for k, v in out.items()},
+          "metrics": out})
+    return out
 
 
 def main():
@@ -1310,6 +1577,21 @@ def main():
               "search_bound_ms": train_kernels["search"]["bound_ms"]})
     for kern in kernels[2:]:
         kern["train_launches"] = train_launches[kern["name"]]
+    d = kernels[3]
+    d.update({"train_ms": train_kernels["word_match"]["ms"],
+              "train_plain_ms": train_kernels["word_match"]["plain_ms"],
+              "train_bound_ms": train_kernels["word_match"]["bound_ms"]})
+    b["search_library_ms"] = train_kernels["search"]["library_ms"]
+    del state, step, batch
+
+    # ---- the trainer around the step ---------------------------------
+    with tempfile.TemporaryDirectory(prefix="trainer_") as out_dir:
+        trainer_launches, trained = phase_trainer(out_dir)
+    for kern in kernels:
+        kern["trainer_launches"] = trainer_launches[kern["name"]]
+        if kern["name"] != "sorted_compact" and not kern["trainer_launches"]:
+            raise AssertionError(f"the trainer never launched {kern['name']}")
+    phase_trained_pair(trained)
 
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

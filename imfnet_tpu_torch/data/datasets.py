@@ -1,0 +1,407 @@
+"""Datasets and the batch loader (``imfnet_tpu.data.datasets``): 3DMatch /
+3DImageMatch fragment pairs, the synthetic pairs, and a shuffling iterator
+over padded batches.
+
+Host-side mirror of `lib/data_loaders.py`:
+- ThreeDMatchPairDataset / IndoorPairDataset (:206-348,717-723): pair lists
+  from per-scene overlap txts, PLY + `_0.png`/`_0.jpg` image, random
+  scale [0.8,1.2] (p=0.95) and random rotation augmentation, voxel dedup.
+- ThreeDMatchTestDataset (:147-203): gt.log-driven raw test pairs.
+- make_data_loader (:730-772): shuffling iterator producing padded
+  PairBatch with a background prefetch thread (replaces worker processes).
+
+Everything here is numpy and draws from ``RandomState`` streams in the JAX
+package's order, so the same seed gives the same samples and batches. The
+loader yields batches of host tensors; the trainer moves them to the card.
+The positive search happens on the device in the train step
+(``train.step.compute_correspondences``), not here. The KITTI datasets need
+the ICP refinement of their ground truth and are not ported yet.
+"""
+from __future__ import annotations
+
+import glob
+import logging
+import os
+import queue
+import threading
+from typing import List, Optional
+
+import numpy as np
+
+from imfnet_tpu_torch.config import Config
+from imfnet_tpu_torch.data.collate import VoxelizedPair, collate_pairs, voxelize_np
+from imfnet_tpu_torch.data.synthetic import synthetic_pair
+from imfnet_tpu_torch.geom.image import load_image, process_image
+from imfnet_tpu_torch.geom.ply import read_ply
+from imfnet_tpu_torch.geom.trajectory import read_trajectory
+from imfnet_tpu_torch.geom.transforms import (Compose, Jitter, apply_transform_np,
+                                              sample_random_trans)
+
+
+def _resolve_data_file(path: str) -> str:
+    """Split-list resolution: CWD-relative (reference layout) first, else the
+    standard split lists shipped with the package (data/config/*.txt)."""
+    if os.path.exists(path):
+        return path
+    pkg = os.path.join(os.path.dirname(__file__), "config", os.path.basename(path))
+    if os.path.exists(pkg):
+        return pkg
+    raise FileNotFoundError(f"split list not found: {path} (also tried {pkg})")
+
+
+def _read_split(path: str) -> List[str]:
+    with open(_resolve_data_file(path)) as f:
+        return f.read().split()
+
+
+class PairDataset:
+    """Base: augmentation state + config (`lib/data_loaders.py:107-144`)."""
+
+    def __init__(self, phase: str, config: Config, random_rotation=True,
+                 random_scale=True, manual_seed=False, transform=None):
+        self.phase = phase
+        self.files: List = []
+        self.config = config
+        self.transform = transform
+        self.voxel_size = config.voxel_size
+        self.matching_search_voxel_size = (
+            config.voxel_size * config.positive_pair_search_voxel_size_multiplier
+        )
+        self.random_scale = random_scale
+        self.min_scale = config.min_scale
+        self.max_scale = config.max_scale
+        self.random_rotation = random_rotation
+        self.rotation_range = config.rotation_range
+        self.randg = np.random.RandomState()
+        if manual_seed:
+            self.reset_seed()
+
+    def reset_seed(self, seed=0):
+        logging.info("Resetting the data loader seed to %d", seed)
+        self.randg.seed(seed)
+
+    def __len__(self):
+        return len(self.files)
+
+    # -- shared augmentation + voxelize tail of __getitem__ -----------------
+    def _finalize(self, xyz0, xyz1, trans, image0, image1,
+                  search_radius=0.0) -> VoxelizedPair:
+        c0, sel0 = voxelize_np(xyz0, self.voxel_size)
+        c1, sel1 = voxelize_np(xyz1, self.voxel_size)
+        f0 = np.ones((len(c0), 1), np.float32)
+        f1 = np.ones((len(c1), 1), np.float32)
+        if self.transform is not None:
+            c0, f0 = self.transform(self.randg, c0, f0)
+            c1, f1 = self.transform(self.randg, c1, f1)
+        return VoxelizedPair(
+            coords0=c0.astype(np.int32), xyz0=xyz0[sel0].astype(np.float32),
+            feats0=f0.astype(np.float32),
+            coords1=c1.astype(np.int32), xyz1=xyz1[sel1].astype(np.float32),
+            feats1=f1.astype(np.float32),
+            image0=image0, image1=image1,
+            T_gt=trans.astype(np.float32),
+            search_radius=float(search_radius),
+        )
+
+    def _augment(self, xyz0, xyz1, base_trans=None):
+        """Random scale + rotation (`lib/data_loaders.py:273-288,556-572`).
+        Returns (xyz0', xyz1', trans, search_radius) with
+        xyz1' ≈ trans @ xyz0'; search_radius is matching_search_voxel_size
+        scaled by the sampled scale (`lib/data_loaders.py:273-276`)."""
+        search_radius = self.matching_search_voxel_size
+        if self.random_scale and self.randg.rand() < 0.95:
+            scale = self.min_scale + (self.max_scale - self.min_scale) * self.randg.rand()
+            search_radius *= scale
+            xyz0 = scale * xyz0
+            xyz1 = scale * xyz1
+        if self.random_rotation:
+            T0 = sample_random_trans(xyz0, self.randg, self.rotation_range)
+            T1 = sample_random_trans(xyz1, self.randg, self.rotation_range)
+            mid = base_trans if base_trans is not None else np.eye(4)
+            trans = T1 @ mid @ np.linalg.inv(T0)
+            xyz0 = apply_transform_np(xyz0, T0)
+            xyz1 = apply_transform_np(xyz1, T1)
+        else:
+            trans = base_trans if base_trans is not None else np.eye(4)
+        return xyz0, xyz1, trans, search_radius
+
+    def _load_image_for(self, ply_or_bin_path: str) -> np.ndarray:
+        for suffix in ("_0.png", "_0.jpg", ".png"):
+            p = ply_or_bin_path.rsplit(".", 1)[0] + suffix
+            if os.path.exists(p):
+                img = load_image(p)
+                return process_image(img, self.config.image_H, self.config.image_W)
+        # missing image → zeros (keeps the pipeline total; callers that train
+        # multimodal models should ensure images exist)
+        return np.zeros((self.config.image_H, self.config.image_W, 3), np.float32)
+
+
+class IndoorPairDataset(PairDataset):
+    """3DImageMatch fragment pairs from overlap txt lists
+    (`lib/data_loaders.py:206-348`)."""
+
+    DATA_FILES = {}
+
+    def __init__(self, phase, config, **kw):
+        super().__init__(phase, config, **kw)
+        self.root = config.threed_match_dir
+        for name in _read_split(self.DATA_FILES[phase]):
+            fnames_txt = glob.glob(os.path.join(config.overlap_path, name + "*"))
+            if not fnames_txt:
+                raise FileNotFoundError(
+                    f"Missing overlap files for {name} under {config.overlap_path}")
+            for fname_txt in fnames_txt:
+                with open(fname_txt) as f:
+                    content = f.readlines()
+                for line in content:
+                    parts = line.strip().split()
+                    if parts:
+                        self.files.append([parts[0], parts[1]])
+
+    def __getitem__(self, idx) -> VoxelizedPair:
+        file0 = os.path.join(self.root, self.files[idx][0])
+        file1 = os.path.join(self.root, self.files[idx][1])
+        xyz0 = read_ply(file0)["points"]
+        xyz1 = read_ply(file1)["points"]
+        image0 = self._load_image_for(file0)
+        image1 = self._load_image_for(file1)
+        xyz0, xyz1, trans, radius = self._augment(xyz0, xyz1)
+        return self._finalize(xyz0, xyz1, trans, image0, image1, radius)
+
+
+class ThreeDMatchPairDataset(IndoorPairDataset):
+    OVERLAP_RATIO = 0.3
+    DATA_FILES = {
+        "train": "./config/train_3dmatch.txt",
+        "val": "./config/val_3dmatch.txt",
+        "test": "./config/test_3dmatch.txt",
+    }
+
+
+class ThreeDMatchTestDataset(PairDataset):
+    """gt.log-driven raw test pairs (`lib/data_loaders.py:147-203`)."""
+
+    DATA_FILES = {"test": "./config/test_3dmatch.txt"}
+
+    def __init__(self, phase, config, scene_id=None, return_ply_names=False, **kw):
+        if phase != "test":
+            raise ValueError(f"ThreeDMatchTestDataset has a test phase only, got {phase!r}")
+        super().__init__(phase, config, **kw)
+        self.root = config.threed_match_dir
+        subset_names = _read_split(self.DATA_FILES[phase])
+        if scene_id is not None:
+            subset_names = [subset_names[scene_id]]
+        for sname in subset_names:
+            traj_file = os.path.join(self.root, sname + "-evaluation/gt.log")
+            if not os.path.exists(traj_file):
+                raise FileNotFoundError(traj_file)
+            for ctraj in read_trajectory(traj_file):
+                self.files.append(
+                    (sname, ctraj.metadata[0], ctraj.metadata[1], ctraj.pose)
+                )
+        self.return_ply_names = return_ply_names
+
+    def __getitem__(self, idx):
+        sname, i, j, T_gt = self.files[idx]
+        ply0 = os.path.join(self.root, sname, f"cloud_bin_{i}.ply")
+        ply1 = os.path.join(self.root, sname, f"cloud_bin_{j}.ply")
+        if self.return_ply_names:
+            return sname, ply0, ply1, T_gt
+        return sname, read_ply(ply0)["points"], read_ply(ply1)["points"], T_gt
+
+
+class SyntheticPairDataset(PairDataset):
+    """Self-contained synthetic dataset (no files needed) — used for smoke
+    training, benchmarks, and CI. Not in the reference."""
+
+    def __init__(self, phase, config, length=None, n_points=None, **kw):
+        super().__init__(phase, config, **kw)
+        self.files = list(range(
+            length if length is not None else config.synthetic_length))
+        self.n_points = n_points if n_points is not None else config.synthetic_n_points
+
+    def __getitem__(self, idx) -> VoxelizedPair:
+        # per-index deterministic in every phase: sample i is the same no
+        # matter which loader draws it or in what order (train uses a
+        # seed-mixed stream so train/val/test differ)
+        if self.phase == "train":
+            seed = (1_000_003 + idx * 7919 + self.config.seed) % (1 << 31)
+        else:
+            seed = idx
+        rng = np.random.RandomState(seed)
+        return synthetic_pair(
+            rng,
+            n_points=self.n_points,
+            voxel_size=self.voxel_size,
+            image_hw=(self.config.image_H, self.config.image_W),
+        )
+
+
+ALL_DATASETS = [ThreeDMatchPairDataset, SyntheticPairDataset]
+dataset_str_mapping = {d.__name__: d for d in ALL_DATASETS}
+# datasets of the JAX package that need match/icp.py for their ground truth
+NOT_PORTED_DATASETS = ("KITTIPairDataset", "KITTINMPairDataset")
+
+
+def dataset_class(name: str):
+    """The dataset class a config names (``config.dataset``)."""
+    if name in NOT_PORTED_DATASETS:
+        raise NotImplementedError(
+            f"dataset {name} is not ported yet: the KITTI datasets refine their "
+            f"ground truth with ICP and come with ROADMAP item 1.9")
+    if name not in dataset_str_mapping:
+        raise ValueError(f"unknown dataset {name!r}; known: {sorted(dataset_str_mapping)}")
+    return dataset_str_mapping[name]
+
+
+class PairLoader:
+    """Iterable over padded PairBatch (host tensors) with background
+    prefetch (`make_data_loader` contract, `lib/data_loaders.py:730-772`)."""
+
+    def __init__(self, dataset, batch_size: int, n_pad: int, shuffle=True,
+                 seed=0, prefetch: int = 2, drop_last=True,
+                 grid_extent=None, shard=None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.n_pad = n_pad
+        self.shuffle = shuffle
+        self.rng = np.random.RandomState(seed)
+        self.prefetch = prefetch
+        self.drop_last = drop_last
+        self.grid_extent = grid_extent  # loud guard, see collate_pairs
+        # data parallelism over processes: shard=(rank, world, group) keeps
+        # only batch b when (b // group) % world == rank — contiguous groups
+        # of ``group`` batches (= local devices per process) rotate over
+        # processes, so the union over processes at each global step equals
+        # the single-process epoch. Identical epoch seed on every process
+        # keeps the permutations aligned. Only complete rounds (one group
+        # per rank) are kept: a ragged tail would give ranks unequal batch
+        # counts, and the rank with the extra group would enter the
+        # gradient all-reduce alone and deadlock the job.
+        self.shard = shard
+        # samples dropped by ValueError (e.g. KITTI <1000-GT-match rejection,
+        # `lib/data_loaders.py:588`); reset each __iter__
+        self.skip_count = 0
+
+    def _total_batches(self):
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _keep_batch(self, b: int) -> bool:
+        if self.shard is None:
+            return True
+        rank, world, group = self.shard
+        rounds = (self._total_batches() // group) // world
+        g = b // group
+        return g % world == rank and g // world < rounds
+
+    def __len__(self):
+        t = self._total_batches()
+        if self.shard is None:
+            return t
+        _, world, group = self.shard
+        return ((t // group) // world) * group  # complete rounds only
+
+    def _epoch_indices(self):
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(idx)
+        return idx
+
+    def __iter__(self):
+        self.skip_count = 0
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = object()
+        abandoned = threading.Event()   # the consumer left before the epoch's end
+
+        def put(item) -> bool:
+            while not abandoned.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def producer():
+            try:
+                idx = self._epoch_indices()
+                for b in range(self._total_batches()):
+                    if abandoned.is_set():
+                        return
+                    if not self._keep_batch(b):
+                        continue
+                    sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
+                    if len(sel) < self.batch_size and self.drop_last:
+                        break
+                    samples = []
+                    for i in sel:
+                        try:
+                            samples.append(self.dataset[int(i)])
+                        except ValueError as e:
+                            # skippable pair (e.g. KITTI <1000 matches,
+                            # `scripts/evaluation_kitti.py:66-70`)
+                            self.skip_count += 1
+                            logging.warning(
+                                "skipping pair %d (%s); %d skipped so far",
+                                int(i), e, self.skip_count)
+                            continue
+                    if samples and not put(collate_pairs(
+                            samples, self.n_pad, grid_extent=self.grid_extent,
+                            device="cpu")):
+                        return
+            except BaseException as e:  # surface in the consumer thread —
+                put(e)                  # a silent stop would truncate epochs
+            finally:
+                put(stop)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is stop:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            # a consumer that stops early (val_max_iter, an error) releases
+            # the producer, which would otherwise wait on the full queue
+            abandoned.set()
+
+
+def make_data_loader(config: Config, phase: str, batch_size: int,
+                     shuffle: Optional[bool] = None) -> PairLoader:
+    if phase not in ("train", "trainval", "val", "test"):
+        raise ValueError(f"unknown phase {phase!r}")
+    if shuffle is None:
+        shuffle = phase != "test"
+    Dataset = dataset_class(config.dataset)
+    use_random_rotation = False
+    use_random_scale = False
+    transform = None
+    if phase in ("train", "trainval"):
+        use_random_rotation = config.use_random_rotation
+        use_random_scale = config.use_random_scale
+        transform = _compose_jitter()
+    dset = Dataset(
+        phase, config,
+        random_rotation=use_random_rotation,
+        random_scale=use_random_scale,
+        transform=transform,
+    )
+    # deterministic augmentation stream (reference reproducibility aid:
+    # `PairDataset.reset_seed`, `lib/data_loaders.py:133-135`, seeded at
+    # `train_3DMatch.py:26-27`)
+    dset.reset_seed(config.seed)
+    # one process: nothing to shard (the JAX package shards the train loader
+    # over its processes here)
+    return PairLoader(dset, batch_size, config.max_points, shuffle=shuffle,
+                      seed=config.seed, shard=None,
+                      grid_extent=(tuple(config.grid_extent)
+                                   if config.use_grid_maps else None))
+
+
+def _compose_jitter():
+    return Compose([Jitter()])

@@ -100,12 +100,10 @@ class ResUNetIMF(nn.Module):
     def forward(self, sv: SparseVoxels, pyramid: CoordinatePyramid,
                 image: Optional[torch.Tensor]) -> torch.Tensor:
         """Descriptors f32[N0, out_channels]; padding rows are zero.
-        ``image`` is [B, H, W, 3] (NHWC) with B the batch count. In
-        ``eval()`` mode the forward is inference and records no graph."""
-        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
-            return self._forward(sv, pyramid, image)
-
-    def _forward(self, sv, pyramid, image):
+        ``image`` is [B, H, W, 3] (NHWC) with B the batch count. The
+        forward records an autograd graph in ``train()`` and in ``eval()``
+        mode alike (an activation map differentiates an eval-mode forward);
+        a caller that only infers wraps it in ``torch.no_grad()``."""
         lv = pyramid.levels
         num_batches = image.shape[0] if image is not None else 1
         masks, bids = [], []

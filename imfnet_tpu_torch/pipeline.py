@@ -23,7 +23,7 @@ from imfnet_tpu_torch.eval.registration import (make_keypoint_registration,
 from imfnet_tpu_torch.models import load_model
 from imfnet_tpu_torch.sparse.coords import SparseVoxels
 from imfnet_tpu_torch.sparse.grid import GridSpec, quantize_grid
-from imfnet_tpu_torch.sparse.kernel_map import CoordinatePyramid
+from imfnet_tpu_torch.sparse.kernel_map import CoordinatePyramid, coarse_levels_fit
 from imfnet_tpu_torch.train.step import make_pyramid_fn
 from imfnet_tpu_torch.utils.device import resolve_device
 
@@ -140,10 +140,21 @@ class PairRegistrar:
         return Quantized(sv, xyz_down[:n_pad], n0, pb.spec)
 
     def pyramid(self, q: Quantized) -> CoordinatePyramid:
+        """The coordinate pyramid at the bucket ``quantize`` chose from the
+        level-0 count. A coarse level that fills its capacity
+        (``level_capacity_divisors``) would give descriptors from a
+        truncated pyramid, so it raises: on the card as a device-side
+        assert (no host read), which surfaces at a later synchronize."""
         fn = make_pyramid_fn(self.config, q.sv.n_padded, q.spec.num_batches,
                              extent=q.spec.extent, map_impl=self.map_impl)
-        return fn(q.sv.coords, q.sv.num_valid)
+        pyr = fn(q.sv.coords, q.sv.num_valid)
+        torch._assert_async(
+            coarse_levels_fit(pyr),
+            "PairRegistrar: a coarse pyramid level overflows its capacity "
+            "(max rows // level_capacity_divisors); the pair needs a larger bucket")
+        return pyr
 
+    @torch.no_grad()
     def forward(self, q: Quantized, pyr: CoordinatePyramid,
                 images: torch.Tensor) -> torch.Tensor:
         return self.model(q.sv, pyr, images)

@@ -103,13 +103,26 @@ def make_pyramid_fn(config: Config, n_pad: int, num_batches: int = 2,
     return fn
 
 
-def forward_pair(model, batch: PairBatch, *, train: bool, config: Config):
+def default_map_impl(config: Config) -> str:
+    """The ``map_impl`` the config asks for: "banded" (the grid pyramid,
+    kernel D) with ``config.use_grid_maps``, else "search"."""
+    return "banded" if config.use_grid_maps else "search"
+
+
+def forward_pair(model, batch: PairBatch, *, train: bool, config: Config,
+                 map_impl: Optional[str] = None):
     """(f0, f1): the model on both sides, in ``train()`` or ``eval()`` mode.
     In training side 1 runs on the running statistics side 0 has just
     updated, as the reference updates them side by side
-    (`lib/trainer.py:521-527`)."""
+    (`lib/trainer.py:521-527`). ``map_impl`` picks how the pyramid is built
+    (``make_pyramid_fn``); None follows ``config.use_grid_maps``, and the
+    grid pyramid works in ``config.grid_extent`` for the batch's pairs, so
+    its batches come from a ``collate_pairs`` that was given that extent."""
+    if map_impl is None:
+        map_impl = default_map_impl(config)
     num_batches = batch.image0.shape[0]
-    pyramid_fn = make_pyramid_fn(config, batch.coords0.shape[0], num_batches)
+    pyramid_fn = make_pyramid_fn(config, batch.coords0.shape[0], num_batches,
+                                 map_impl=map_impl)
     model.train(train)
     feats = []
     for coords, f, n, image in ((batch.coords0, batch.feats0, batch.n0, batch.image0),
@@ -160,17 +173,18 @@ def compute_correspondences(batch: PairBatch, search_radius
     return torch.stack([rows, idx.to(torch.int32)], dim=1), ok
 
 
-def make_loss_fn(model, config: Config):
+def make_loss_fn(model, config: Config, map_impl: Optional[str] = None):
     """loss_fn(batch, generator=None, draws=None) → (loss, metrics): both
     forwards in training mode (the running statistics move) and the
     config's loss. ``draws`` replaces the loss's random draws
-    (``train.losses``)."""
+    (``train.losses``); ``map_impl`` goes to ``forward_pair``."""
     loss_kind = LOSS_FNS[config.trainer]
     bs = config.batch_size
 
     def loss_fn(batch: PairBatch, generator: Optional[torch.Generator] = None,
                 draws: Optional[Sequence[torch.Tensor]] = None):
-        f0, f1 = forward_pair(model, batch, train=True, config=config)
+        f0, f1 = forward_pair(model, batch, train=True, config=config,
+                              map_impl=map_impl)
         valid0 = row_mask(f0.shape[0], batch.n0)
         valid1 = row_mask(f1.shape[0], batch.n1)
         if batch.pairs is None:
@@ -223,17 +237,17 @@ def _apply(state: TrainState) -> None:
     state.step += 1
 
 
-def make_train_step(config: Config):
+def make_train_step(config: Config, map_impl: Optional[str] = None):
     """train_step(state, batch, generator=None, draws=None) → (state,
     metrics): loss, backward, one optimizer step, one step of the learning
     rate schedule. ``state`` (``train.state.create_train_state``) is updated
-    in place and returned."""
+    in place and returned. ``map_impl`` goes to ``forward_pair``."""
 
     def train_step(state: TrainState, batch: PairBatch,
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Sequence[torch.Tensor]] = None
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        loss, metrics = make_loss_fn(state.model, config)(batch, generator, draws)
+        loss, metrics = make_loss_fn(state.model, config, map_impl)(batch, generator, draws)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         _apply(state)
@@ -242,7 +256,7 @@ def make_train_step(config: Config):
     return train_step
 
 
-def make_accum_steps(config: Config):
+def make_accum_steps(config: Config, map_impl: Optional[str] = None):
     """Gradient accumulation over ``config.iter_size`` micro-batches, the
     reference's only scaling knob (`lib/trainer.py:252-307`): the loss is
     divided by iter_size, backward accumulates, one optimizer step per
@@ -255,13 +269,14 @@ def make_accum_steps(config: Config):
           apply_step)
       apply_step(state) → state — one optimizer step on the sum, which is
           the group's mean gradient
+    ``map_impl`` goes to ``forward_pair``.
     """
     scale = 1.0 / float(max(config.iter_size, 1))
 
     def grad_step(state: TrainState, batch: PairBatch,
                   generator: Optional[torch.Generator] = None,
                   draws: Optional[Sequence[torch.Tensor]] = None):
-        loss, metrics = make_loss_fn(state.model, config)(batch, generator, draws)
+        loss, metrics = make_loss_fn(state.model, config, map_impl)(batch, generator, draws)
         (loss * scale).backward()
         return metrics
 

@@ -1,0 +1,329 @@
+"""High-level training orchestration (``imfnet_tpu.train.trainer``).
+
+The `AlignmentTrainer` equivalent (`lib/trainer.py:28-198`): builds the model
+from config, runs epochs, validates every `val_epoch_freq`, tracks the best
+validation metric (max for feat_match_ratio/success, min for rre/rte,
+`lib/trainer.py:148-181`), writes `config.json` into the run dir, saves
+per-epoch + best checkpoints with the metric value in the name, and resumes
+full state. One Trainer class covers all four loss flavours (the loss is
+selected inside the step via config.trainer).
+
+The loaders yield batches of host tensors; the trainer moves each to its
+device through pinned memory. Random draws: one ``torch.Generator`` on the
+device, seeded from ``config.seed``, feeds every training step; the
+validation step of batch ``i`` gets a generator seeded with ``i``, so a
+validation epoch does not depend on how many steps were trained before it.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+from typing import Any, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from imfnet_tpu_torch.config import Config
+from imfnet_tpu_torch.models import load_model
+from imfnet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from imfnet_tpu_torch.train.state import TrainState, create_train_state
+from imfnet_tpu_torch.train.step import PairBatch, make_accum_steps, make_train_step
+from imfnet_tpu_torch.train.validate import make_val_step
+from imfnet_tpu_torch.utils.device import resolve_device
+from imfnet_tpu_torch.utils.timer import AverageMeter, Timer
+
+
+class MetricsWriter:
+    """JSONL scalar log (stands in for tensorboardX, `lib/trainer.py:101`)."""
+
+    def __init__(self, out_dir: str):
+        os.makedirs(out_dir, exist_ok=True)
+        self._f = open(os.path.join(out_dir, "metrics.jsonl"), "a")
+
+    def add_scalar(self, tag: str, value, step: int):
+        self._f.write(json.dumps({"tag": tag, "value": float(value), "step": int(step)}) + "\n")
+        self._f.flush()
+
+    def close(self):
+        self._f.close()
+
+
+def build_model_from_config(config: Config, compute_dtype=None,
+                            eval_fast: bool = False) -> torch.nn.Module:
+    """The config's model with seeded random weights (``config.seed``).
+    eval_fast enables inference-only fast paths (occupancy conv1); the
+    parameters and buffers are unchanged, so a ``state_dict`` loads either
+    way."""
+    dt = compute_dtype or getattr(torch, config.compute_dtype)
+    kw = dict(
+        in_channels=config.in_channels,
+        out_channels=config.model_n_out,
+        conv1_kernel_size=config.conv1_kernel_size,
+        normalize_feature=config.normalize_feature,
+        bn_momentum=config.bn_momentum,
+        compute_dtype=dt,
+    )
+    if eval_fast and config.model.startswith("ResUNet") and config.in_channels == 1:
+        kw["conv1_occupancy"] = True
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(config.seed)
+        return load_model(config.model)(**kw)
+
+
+def batch_to_device(batch: PairBatch, device: torch.device) -> PairBatch:
+    """The batch's tensors on ``device``; towards a card through pinned
+    memory, without blocking the host."""
+    if device.type != "cuda":
+        return PairBatch(*(None if t is None else t.to(device) for t in batch))
+    return PairBatch(*(None if t is None else t.pin_memory().to(device, non_blocking=True)
+                       for t in batch))
+
+
+def _close(it) -> None:
+    """Ends a loader's iterator early, which releases its producer thread;
+    a plain iterator has nothing to close."""
+    close = getattr(it, "close", None)
+    if close is not None:
+        close()
+
+
+def _rng_state(rng: np.random.RandomState) -> Dict[str, Any]:
+    """A ``RandomState``'s stream as tensors and numbers (``state.pt`` is
+    loaded with ``weights_only``, which takes no numpy arrays)."""
+    name, keys, pos, has_gauss, cached = rng.get_state()
+    return dict(name=name, keys=torch.from_numpy(keys.astype(np.int64)), pos=int(pos),
+                has_gauss=int(has_gauss), cached=float(cached))
+
+
+def _set_rng_state(rng: np.random.RandomState, s: Dict[str, Any]) -> None:
+    rng.set_state((s["name"], s["keys"].cpu().numpy().astype(np.uint32), s["pos"],
+                   s["has_gauss"], s["cached"]))
+
+
+class Trainer:
+    _MAX_METRICS = ("feat_match_ratio", "success")
+    _MIN_METRICS = ("rre", "rte")
+
+    def __init__(
+        self,
+        config: Config,
+        data_loader: Iterable,
+        val_data_loader: Optional[Iterable] = None,
+        steps_per_epoch: Optional[int] = None,
+        device=None,
+    ):
+        """``device`` defaults to the card and raises without one; pass
+        ``device="cpu"`` for the plain PyTorch path."""
+        self.device = resolve_device(device)
+        self.config = config
+        self.data_loader = data_loader
+        self.val_data_loader = val_data_loader
+        # one card: 1, or 0 ("auto", every device there is); data
+        # parallelism over several is not ported
+        if config.data_parallel not in (0, 1):
+            raise NotImplementedError(
+                f"config.data_parallel={config.data_parallel}: the port trains on "
+                f"one device until data parallelism is ported (ROADMAP 1.12)")
+        self.n_devices = 1
+        batches = steps_per_epoch or len(data_loader)
+        if batches // max(config.iter_size, 1) == 0:
+            raise ValueError(
+                f"loader yields {batches} batches per epoch but "
+                f"data_parallel={self.n_devices} × iter_size={config.iter_size} consumes "
+                f"more; no optimizer step would run")
+        self.model = build_model_from_config(config).to(self.device)
+        # the schedule needs the optimizer steps per epoch before the
+        # optimizer exists
+        self.steps_per_epoch = max(batches // max(config.iter_size, 1), 1)
+        self.train_step = make_train_step(config)
+        if config.iter_size > 1:
+            self.grad_step, self.apply_step = make_accum_steps(config)
+        self.val_step = make_val_step(self.model, config)
+
+        self.best_val_metric = config.best_val_metric
+        self.best_val = -np.inf if self.best_val_metric in self._MAX_METRICS else np.inf
+        self.best_val_epoch = -1
+        self.start_epoch = 1
+        self.out_dir = config.out_dir
+        os.makedirs(self.out_dir, exist_ok=True)
+        with open(os.path.join(self.out_dir, "config.json"), "w") as f:
+            f.write(config.to_json())
+        self.writer = MetricsWriter(self.out_dir)
+        self.state: Optional[TrainState] = None
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        # the last training epoch's timers and loss meter, for a caller that
+        # reports them
+        self.total_timer, self.data_timer, self.move_timer = Timer(), Timer(), Timer()
+        self.loss_meter = AverageMeter()
+
+    # -- state init ---------------------------------------------------------
+    def init_state(self, example_batch: Optional[PairBatch] = None) -> TrainState:
+        """The train state of the seeded model, or of ``config.resume``.
+        ``example_batch`` is accepted for the JAX package's signature, where
+        the parameters' shapes come from a traced forward; a module knows
+        its own."""
+        self.state = create_train_state(self.model, self.config, self.steps_per_epoch)
+        if self.config.resume:
+            self.state, meta = load_checkpoint(self.config.resume, self.state)
+            # meta["epoch"] is the last epoch that was trained: go on after it
+            self.start_epoch = meta["epoch"] + 1
+            self.best_val = meta.get("best_val", self.best_val)
+            self.best_val_epoch = meta.get("best_val_epoch", -1)
+            self.best_val_metric = meta.get("best_val_metric", self.best_val_metric)
+            self._restore_streams(meta["extra"])
+            logging.info("resumed from %s; next epoch %d", self.config.resume,
+                         self.start_epoch)
+        return self.state
+
+    def _host_streams(self):
+        """(name, RandomState) of every host stream the loaders carry: the
+        shuffle permutations and the datasets' augmentation draws."""
+        for name, loader in (("train", self.data_loader), ("val", self.val_data_loader)):
+            for attr, rng in (("shuffle", getattr(loader, "rng", None)),
+                              ("augment", getattr(getattr(loader, "dataset", None),
+                                                  "randg", None))):
+                if isinstance(rng, np.random.RandomState):
+                    yield f"{name}_{attr}", rng
+
+    def _streams(self) -> Dict[str, Any]:
+        """The random streams a resumed run needs to continue as the
+        uninterrupted one would: the training generator and the loaders'."""
+        out: Dict[str, Any] = {"generator": self.generator.get_state()}
+        out.update((name, _rng_state(rng)) for name, rng in self._host_streams())
+        return out
+
+    def _restore_streams(self, extra: Dict[str, Any]) -> None:
+        if "generator" in extra:
+            self.generator.set_state(extra["generator"].cpu())
+        for name, rng in self._host_streams():
+            if name in extra:
+                _set_rng_state(rng, extra[name])
+
+    # -- epochs -------------------------------------------------------------
+    def train(self):
+        config = self.config
+        if self.state is None:
+            self.init_state()
+        if self.val_data_loader is not None and config.test_valid:
+            val = self._valid_epoch()
+            for k, v in val.items():
+                self.writer.add_scalar(f"val/{k}", v, 0)
+
+        for epoch in range(self.start_epoch, config.max_epoch + 1):
+            self._train_epoch(epoch)
+            if self.val_data_loader is not None and epoch % config.val_epoch_freq == 0:
+                val = self._valid_epoch()
+                for k, v in val.items():
+                    self.writer.add_scalar(f"val/{k}", v, epoch)
+                self._save(epoch, val, "checkpoint")
+                cur = val[self.best_val_metric]
+                # strict: of tied epochs the first stays the best, as in the
+                # reference
+                better = (
+                    cur > self.best_val
+                    if self.best_val_metric in self._MAX_METRICS
+                    else cur < self.best_val
+                )
+                if better:
+                    logging.info("new best %s=%.4f at epoch %d",
+                                 self.best_val_metric, cur, epoch)
+                    self.best_val, self.best_val_epoch = cur, epoch
+                    self._save(epoch, val, "best_val_checkpoint")
+
+    def _next_batch(self, it) -> PairBatch:
+        self.data_timer.tic()
+        batch = next(it)
+        self.data_timer.toc()
+        self.move_timer.tic()
+        batch = batch_to_device(batch, self.device)
+        self.move_timer.toc()
+        return batch
+
+    def _train_epoch(self, epoch: int):
+        config = self.config
+        self.total_timer, self.data_timer, self.move_timer = Timer(), Timer(), Timer()
+        self.loss_meter = AverageMeter()
+        total_timer, data_timer = self.total_timer, self.data_timer
+        it = iter(self.data_loader)
+        # iter_size gradient accumulation: n_iter optimizer steps consume
+        # n_iter*iter_size loader batches (`lib/trainer.py:252-307` semantics)
+        n_iter = len(self.data_loader) // max(config.iter_size, 1)
+        if n_iter == 0:
+            raise ValueError(
+                f"loader yields {len(self.data_loader)} batches per epoch but "
+                f"iter_size={config.iter_size} x data_parallel={self.n_devices}"
+                f"; no optimizer step would run — "
+                f"lower them or grow the dataset/batch split")
+        try:
+            for curr_iter in range(n_iter):
+                total_timer.tic()
+                batch = self._next_batch(it)
+                if config.iter_size > 1:
+                    # metrics stay device tensors per micro-step (a float()
+                    # here would wait for the device); one read per group
+                    group: Dict[str, torch.Tensor] = {}
+                    for micro in range(config.iter_size):
+                        if micro > 0:
+                            batch = self._next_batch(it)
+                        metrics = self.grad_step(self.state, batch, self.generator)
+                        for k, v in metrics.items():
+                            group[k] = group[k] + v if k in group else v
+                    self.state = self.apply_step(self.state)
+                    metrics = {k: float(v) / config.iter_size for k, v in group.items()}
+                else:
+                    self.state, metrics = self.train_step(self.state, batch, self.generator)
+                loss = float(metrics["loss"])
+                self.loss_meter.update(loss)
+                total_timer.toc()
+                if curr_iter % config.stat_freq == 0:
+                    step = (epoch - 1) * n_iter + curr_iter
+                    for k, v in metrics.items():
+                        self.writer.add_scalar(f"train/{k}", float(v), step)
+                    logging.info(
+                        "Train Epoch: %d [%d/%d], Loss: %.3e  Data t: %.4f, Iter t: %.4f",
+                        epoch, curr_iter, n_iter, loss, data_timer.avg, total_timer.avg,
+                    )
+        finally:
+            _close(it)
+
+    def _valid_epoch(self):
+        config = self.config
+        meters = {k: AverageMeter() for k in
+                  ("loss", "rre", "rte", "success", "hit_ratio",
+                   "feat_match_ratio", "corr_inliers", "irls_resid_med",
+                   "irls_resid_inlier")}
+        tot = len(self.val_data_loader)
+        if config.val_max_iter > 0:
+            tot = min(config.val_max_iter, tot)
+        it = iter(self.val_data_loader)
+        try:
+            for i in range(tot):
+                batch = batch_to_device(next(it), self.device)
+                gen = torch.Generator(device=self.device).manual_seed(i)
+                out = self.val_step(batch, gen)
+                out = {k: float(v) for k, v in out.items()}
+                if not np.isnan(out["rre"]):
+                    meters["rre"].update(out["rre"])
+                for k in ("loss", "rte", "success", "hit_ratio",
+                          "feat_match_ratio", "corr_inliers", "irls_resid_med",
+                          "irls_resid_inlier"):
+                    if k in out and not np.isnan(out[k]):
+                        meters[k].update(out[k])
+        finally:
+            _close(it)
+        result = {k: m.avg for k, m in meters.items()}
+        logging.info(
+            "Validation: loss %.3f rte %.3f rre %.3f success %.3f "
+            "hit_ratio %.3f fmr %.3f",
+            result["loss"], result["rte"], result["rre"], result["success"],
+            result["hit_ratio"], result["feat_match_ratio"],
+        )
+        return result
+
+    def _save(self, epoch, val, name) -> str:
+        return save_checkpoint(
+            self.out_dir, name, self.state, self.config, epoch,
+            self.best_val, self.best_val_epoch, self.best_val_metric,
+            val_value=val[self.best_val_metric], extra=self._streams(),
+        )

@@ -22,8 +22,10 @@ from imfnet_tpu_torch.train.losses import _sample_without_replacement
 from imfnet_tpu_torch.train.step import PairBatch, forward_pair
 
 
-def make_val_step(model, config: Config, subsample_size: Optional[int] = None):
+def make_val_step(model, config: Config, subsample_size: Optional[int] = None,
+                  map_impl: Optional[str] = None):
     """val_step(batch, generator=None, draws=None) → metrics (0-d tensors).
+    ``map_impl`` picks how the pyramid is built (``train.step.forward_pair``).
     ``subsample_size`` defaults to config.val_subsample_size (the
     reference's 5000, `lib/trainer.py:419`), capped by the pad capacity as
     the reference's min(N, 5000); ``draws`` (u[N0], u[N1]) replaces the
@@ -35,7 +37,8 @@ def make_val_step(model, config: Config, subsample_size: Optional[int] = None):
     @torch.no_grad()
     def val_step(batch: PairBatch, generator: Optional[torch.Generator] = None,
                  draws: Optional[Sequence[torch.Tensor]] = None):
-        f0, f1 = forward_pair(model, batch, train=False, config=config)
+        f0, f1 = forward_pair(model, batch, train=False, config=config,
+                              map_impl=map_impl)
         v0 = row_mask(f0.shape[0], batch.n0)
         v1 = row_mask(f1.shape[0], batch.n1)
         u0, u1 = draws if draws is not None else (None, None)

@@ -477,8 +477,10 @@ def test_kernel_c_d_wrappers_check_inputs():
 
 @pytest.fixture(scope="module")
 def registrars():
-    """The default path and the packed-grid path on one small pair, CPU."""
-    cfg = bench_config().replace(compute_dtype="float32")
+    """The default path and the packed-grid path on one small pair, CPU
+    (divisors under which this sparse cloud's coarse levels fit)."""
+    cfg = bench_config().replace(compute_dtype="float32",
+                                 level_capacity_divisors=(1, 2, 4, 8))
     pair = synthetic_pair(np.random.RandomState(2), n_points=6000, image_hw=(24, 32))
     out = {}
     for name, kw in (("default", {}),

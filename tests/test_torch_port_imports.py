@@ -54,6 +54,39 @@ def test_source_imports_nothing_of_jax(path):
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
+def test_scan_covers_the_cli_the_trainer_and_the_split_lists():
+    names = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for name in ("imfnet_tpu_torch/cli.py", "imfnet_tpu_torch/config.py",
+                 "imfnet_tpu_torch/data/datasets.py", "imfnet_tpu_torch/train/trainer.py",
+                 "imfnet_tpu_torch/train/checkpoint.py", "imfnet_tpu_torch/geom/image.py",
+                 "imfnet_tpu_torch/geom/ply.py", "imfnet_tpu_torch/geom/trajectory.py",
+                 "imfnet_tpu_torch/utils/timer.py", "chip_smoke.py"):
+        assert name in names, name
+    # the split lists are the port's own copy, resolved beside its loader
+    from imfnet_tpu_torch.data import datasets
+    for split in ("train", "val", "test"):
+        path = datasets._resolve_data_file(f"./config/{split}_3dmatch.txt")
+        assert pathlib.Path(path).resolve().is_relative_to(PORT)
+
+
+def test_trainer_and_datasets_import_neither_pil_nor_jax():
+    code = (
+        "import sys\n"
+        "import imfnet_tpu_torch.data.datasets\n"
+        "import imfnet_tpu_torch.train.trainer\n"
+        "import imfnet_tpu_torch.cli\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        f"{FORBIDDEN + ('PIL',)!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_entry_point_raises_without_cuda(monkeypatch):
     from imfnet_tpu_torch.pipeline import PairRegistrar
     from imfnet_tpu_torch.utils.device import resolve_device

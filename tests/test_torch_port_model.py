@@ -211,7 +211,7 @@ def _descriptors(setup, occupancy, jdt, tdt):
     sv_t = SparseVoxels(setup["sv_t"].coords, torch.tensor(np.asarray(sv_j.feats)),
                         setup["sv_t"].num_valid)
     out = _port_model(setup["variables"], tdt, occupancy)(
-        sv_t, setup["pyr_t"], torch.from_numpy(setup["images"])).numpy()
+        sv_t, setup["pyr_t"], torch.from_numpy(setup["images"])).detach().numpy()
     return out, ref
 
 

@@ -133,11 +133,13 @@ def _jax_chain(pair, cfg):
 @pytest.fixture(scope="module")
 def chain():
     pair = synthetic_pair(np.random.RandomState(2), n_points=6000, image_hw=HW)
-    div = (1, 3, 8, 20)
+    # a 6000-point cloud is sparser than a fragment: its coarse levels
+    # overflow the bench's divisors (1, 3, 8, 20), which PairRegistrar refuses
+    div = (1, 2, 4, 8)
     ref = _jax_chain(pair, jax_config(level_capacity_divisors=div,
                                       num_rand_keypoints=K))
     cfg = bench_config().replace(compute_dtype="float32", num_rand_keypoints=K,
-                                 ransac_max_iteration=H)
+                                 ransac_max_iteration=H, level_capacity_divisors=div)
     reg = PairRegistrar(cfg, device="cpu",
                         state_dict=state_dict_from_flax(ref["variables"]))
     pb = reg.prepare(pair.xyz0, pair.xyz1, pair.image0, pair.image1)

@@ -40,6 +40,17 @@ N_PAD = SMALL["max_points"]
 RADIUS = 0.0375
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's many small CPU ops: beside the
+    other test workers a thread pool per process oversubscribes the cores,
+    and its barriers then cost far more than the ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
