@@ -7,6 +7,9 @@ Host-side mirror of `lib/data_loaders.py`:
   from per-scene overlap txts, PLY + `_0.png`/`_0.jpg` image, random
   scale [0.8,1.2] (p=0.95) and random rotation augmentation, voxel dedup.
 - ThreeDMatchTestDataset (:147-203): gt.log-driven raw test pairs.
+- KITTIPairDataset / KITTINMPairDataset (:351-714): velodyne .bin pairs by
+  time difference or >=10 m apart, ground truth from the odometry poses and
+  velo2cam, refined by ICP (``match.icp``, on the device) and cached to .npy.
 - make_data_loader (:730-772): shuffling iterator producing padded
   PairBatch with a background prefetch thread (replaces worker processes).
 
@@ -14,19 +17,20 @@ Everything here is numpy and draws from ``RandomState`` streams in the JAX
 package's order, so the same seed gives the same samples and batches. The
 loader yields batches of host tensors; the trainer moves them to the card.
 The positive search happens on the device in the train step
-(``train.step.compute_correspondences``), not here. The KITTI datasets need
-the ICP refinement of their ground truth and are not ported yet.
+(``train.step.compute_correspondences``), not here.
 """
 from __future__ import annotations
 
 import glob
 import logging
 import os
+import pathlib
 import queue
 import threading
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from imfnet_tpu_torch.config import Config
 from imfnet_tpu_torch.data.collate import VoxelizedPair, collate_pairs, voxelize_np
@@ -36,6 +40,12 @@ from imfnet_tpu_torch.geom.ply import read_ply
 from imfnet_tpu_torch.geom.trajectory import read_trajectory
 from imfnet_tpu_torch.geom.transforms import (Compose, Jitter, apply_transform_np,
                                               sample_random_trans)
+from imfnet_tpu_torch.match.icp import icp_point_to_point
+from imfnet_tpu_torch.utils.device import resolve_device
+from imfnet_tpu_torch.utils.native import count_pairs_within_radius
+
+_kitti_pose_cache = {}
+_kitti_icp_cache = {}
 
 
 def _resolve_data_file(path: str) -> str:
@@ -210,6 +220,186 @@ class ThreeDMatchTestDataset(PairDataset):
         return sname, read_ply(ply0)["points"], read_ply(ply1)["points"], T_gt
 
 
+_VELO2CAM = None
+
+
+def velo2cam() -> np.ndarray:
+    """KITTI velodyne→cam0 extrinsics (`lib/data_loaders.py:408-420`)."""
+    global _VELO2CAM
+    if _VELO2CAM is None:
+        R = np.array([
+            7.533745e-03, -9.999714e-01, -6.166020e-04, 1.480249e-02,
+            7.280733e-04, -9.998902e-01, 9.998621e-01, 7.523790e-03,
+            1.480755e-02,
+        ]).reshape(3, 3)
+        T = np.array([-4.069766e-03, -7.631618e-02, -2.717806e-01]).reshape(3, 1)
+        _VELO2CAM = np.vstack((np.hstack([R, T]), [0, 0, 0, 1])).T
+    return _VELO2CAM
+
+
+class KITTIPairDataset(PairDataset):
+    """Odometry pairs with time difference in [2, max_time_diff)
+    (`lib/data_loaders.py:351-623`). The ICP refinement of a pair's ground
+    truth runs on ``icp_device`` (default the card) when its .npy cache
+    under ``config.icp_cache_path`` (default ``<kitti_root>/icp``) is
+    missing."""
+
+    DATA_FILES = {
+        "train": "./config/train_kitti.txt",
+        "val": "./config/val_kitti.txt",
+        "test": "./config/test_kitti.txt",
+    }
+    TEST_RANDOM_ROTATION = False
+
+    def __init__(self, phase, config, icp_device=None, **kw):
+        if "random_rotation" in kw:
+            kw["random_rotation"] = self.TEST_RANDOM_ROTATION
+        super().__init__(phase, config, **kw)
+        self.icp_device = icp_device
+        self.root = os.path.join(config.kitti_root, "dataset")
+        self.icp_path = config.icp_cache_path or os.path.join(config.kitti_root, "icp")
+        pathlib.Path(self.icp_path).mkdir(parents=True, exist_ok=True)
+        self.max_time_diff = config.kitti_max_time_diff
+        self._build_file_list(_read_split(self.DATA_FILES[phase]))
+
+    def _scan_ids(self, drive_id: int):
+        fnames = glob.glob(self.root + "/sequences/%02d/velodyne/*.bin" % drive_id)
+        assert len(fnames) > 0, f"no velodyne data for drive {drive_id} in {self.root}"
+        return sorted(int(os.path.split(f)[-1][:-4]) for f in fnames)
+
+    def _build_file_list(self, subset_names):
+        for dirname in subset_names:
+            drive_id = int(dirname)
+            inames = self._scan_ids(drive_id)
+            iset = set(inames)
+            for start_time in inames:
+                for time_diff in range(2, self.max_time_diff):
+                    pair_time = time_diff + start_time
+                    if pair_time in iset:
+                        self.files.append((drive_id, start_time, pair_time))
+
+    def _poses(self, drive: int) -> np.ndarray:
+        path = self.root + "/poses/%02d.txt" % drive
+        if path not in _kitti_pose_cache:
+            _kitti_pose_cache[path] = np.genfromtxt(path)
+        return _kitti_pose_cache[path]
+
+    def _position(self, odometry: np.ndarray) -> np.ndarray:
+        T = odometry.reshape(3, 4)
+        return np.vstack((T, [0, 0, 0, 1]))
+
+    def _velodyne_fn(self, drive: int, t: int) -> str:
+        return self.root + "/sequences/%02d/velodyne/%06d.bin" % (drive, t)
+
+    def _refined_gt(self, drive, t0, t1, xyz0, xyz1) -> np.ndarray:
+        """ICP-refined ground truth, cached to .npy
+        (`lib/data_loaders.py:527-554`) and in memory by the file's path."""
+        fname = os.path.join(self.icp_path, "%d_%d_%d.npy" % (drive, t0, t1))
+        if fname in _kitti_icp_cache:
+            return _kitti_icp_cache[fname]
+        if os.path.exists(fname):
+            M2 = np.load(fname)
+        else:
+            poses = self._poses(drive)
+            p0 = self._position(poses[t0])
+            p1 = self._position(poses[t1])
+            v2c = velo2cam()
+            M = (v2c @ p0.T @ np.linalg.inv(p1.T) @ np.linalg.inv(v2c)).T
+            _, sel0 = voxelize_np(xyz0, 0.05)
+            _, sel1 = voxelize_np(xyz1, 0.05)
+            M2 = self._run_icp(apply_transform_np(xyz0[sel0], M), xyz1[sel1],
+                               device=self.icp_device) @ M
+            np.save(fname, M2)
+        _kitti_icp_cache[fname] = M2
+        return M2
+
+    @staticmethod
+    def _run_icp(xyz0_t: np.ndarray, xyz1: np.ndarray, threshold=0.2,
+                 device=None) -> np.ndarray:
+        """``icp_point_to_point`` (30 iterations) with both clouds padded to
+        the next power of two of the larger one, as the JAX package pads."""
+        dev = resolve_device(device)
+        n_pad = 1 << int(np.ceil(np.log2(max(len(xyz0_t), len(xyz1), 2))))
+
+        def pad(x):
+            out = np.zeros((n_pad, 3), np.float32)
+            out[: len(x)] = x
+            return torch.from_numpy(out).to(dev)
+
+        rows = torch.arange(n_pad, device=dev)
+        T = icp_point_to_point(pad(xyz0_t), pad(xyz1), rows < len(xyz0_t),
+                               rows < len(xyz1), torch.eye(4, device=dev), threshold,
+                               iters=30)
+        return T.cpu().numpy().astype(np.float64)
+
+    def __getitem__(self, idx) -> VoxelizedPair:
+        drive, t0, t1 = self.files[idx]
+        fname0 = self._velodyne_fn(drive, t0)
+        fname1 = self._velodyne_fn(drive, t1)
+        xyz0 = np.fromfile(fname0, dtype=np.float32).reshape(-1, 4)[:, :3]
+        xyz1 = np.fromfile(fname1, dtype=np.float32).reshape(-1, 4)[:, :3]
+        image0 = self._load_image_for(fname0)
+        image1 = self._load_image_for(fname0)  # the reference reads frame 0's image twice (:508-509)
+        M2 = self._refined_gt(drive, t0, t1, xyz0, xyz1)
+
+        if self.random_rotation:
+            T0 = sample_random_trans(xyz0, self.randg, 45.0)  # pi/4, :557
+            T1 = sample_random_trans(xyz1, self.randg, 45.0)
+            trans = T1 @ M2 @ np.linalg.inv(T0)
+            xyz0 = apply_transform_np(xyz0, T0)
+            xyz1 = apply_transform_np(xyz1, T1)
+        else:
+            trans = M2
+        radius = self.matching_search_voxel_size
+        if self.random_scale and self.randg.rand() < 0.95:
+            scale = self.min_scale + (self.max_scale - self.min_scale) * self.randg.rand()
+            radius *= scale  # `lib/data_loaders.py:566-570`
+            xyz0 = scale * xyz0
+            xyz1 = scale * xyz1
+        sample = self._finalize(xyz0, xyz1, trans, image0, image1, radius)
+        # pair rejection: the reference raises when the voxelized pair has
+        # fewer than 1000 ground-truth correspondences
+        # (`lib/data_loaders.py:586-588`); PairLoader counts these skips
+        # (`scripts/evaluation_kitti.py:66-70`)
+        n_matches = count_pairs_within_radius(
+            apply_transform_np(sample.xyz0, trans), sample.xyz1, radius)
+        if n_matches < 1000:
+            raise ValueError(f"{drive}, {t0}, {t1}")
+        return sample
+
+
+class KITTINMPairDataset(KITTIPairDataset):
+    """Pairs >= 10 m apart (`lib/data_loaders.py:626-714`)."""
+
+    MIN_DIST = 10
+
+    def _build_file_list(self, subset_names):
+        for dirname in subset_names:
+            drive_id = int(dirname)
+            inames = self._scan_ids(drive_id)
+            iset = set(inames)
+            all_pos = np.array([self._position(p) for p in self._poses(drive_id)])
+            Ts = all_pos[:, :3, 3]
+            pdist = np.sqrt(((Ts.reshape(1, -1, 3) - Ts.reshape(-1, 1, 3)) ** 2).sum(-1))
+            valid_pairs = pdist > self.MIN_DIST
+            curr_time = inames[0]
+            while curr_time in iset:
+                next_time = np.where(valid_pairs[curr_time][curr_time:curr_time + 100])[0]
+                if len(next_time) == 0:
+                    curr_time += 1
+                    continue
+                next_time = next_time[0] + curr_time - 1
+                if next_time in iset:
+                    self.files.append((drive_id, curr_time, next_time))
+                    curr_time = next_time + 1
+                else:
+                    curr_time += 1
+        # problematic sequence (`lib/data_loaders.py:708-714`)
+        for item in [(8, 15, 58)]:
+            if item in self.files:
+                self.files.remove(item)
+
+
 class SyntheticPairDataset(PairDataset):
     """Self-contained synthetic dataset (no files needed) — used for smoke
     training, benchmarks, and CI. Not in the reference."""
@@ -237,18 +427,13 @@ class SyntheticPairDataset(PairDataset):
         )
 
 
-ALL_DATASETS = [ThreeDMatchPairDataset, SyntheticPairDataset]
+ALL_DATASETS = [ThreeDMatchPairDataset, KITTIPairDataset, KITTINMPairDataset,
+                SyntheticPairDataset]
 dataset_str_mapping = {d.__name__: d for d in ALL_DATASETS}
-# datasets of the JAX package that need match/icp.py for their ground truth
-NOT_PORTED_DATASETS = ("KITTIPairDataset", "KITTINMPairDataset")
 
 
 def dataset_class(name: str):
     """The dataset class a config names (``config.dataset``)."""
-    if name in NOT_PORTED_DATASETS:
-        raise NotImplementedError(
-            f"dataset {name} is not ported yet: the KITTI datasets refine their "
-            f"ground truth with ICP and come with ROADMAP item 1.9")
     if name not in dataset_str_mapping:
         raise ValueError(f"unknown dataset {name!r}; known: {sorted(dataset_str_mapping)}")
     return dataset_str_mapping[name]
@@ -372,7 +557,10 @@ class PairLoader:
 
 
 def make_data_loader(config: Config, phase: str, batch_size: int,
-                     shuffle: Optional[bool] = None) -> PairLoader:
+                     shuffle: Optional[bool] = None, device=None) -> PairLoader:
+    """The config's dataset for ``phase`` behind a PairLoader. ``device``
+    is where a KITTI dataset refines uncached ground truth (default the
+    card)."""
     if phase not in ("train", "trainval", "val", "test"):
         raise ValueError(f"unknown phase {phase!r}")
     if shuffle is None:
@@ -385,11 +573,13 @@ def make_data_loader(config: Config, phase: str, batch_size: int,
         use_random_rotation = config.use_random_rotation
         use_random_scale = config.use_random_scale
         transform = _compose_jitter()
+    extra = {"icp_device": device} if issubclass(Dataset, KITTIPairDataset) else {}
     dset = Dataset(
         phase, config,
         random_rotation=use_random_rotation,
         random_scale=use_random_scale,
         transform=transform,
+        **extra,
     )
     # deterministic augmentation stream (reference reproducibility aid:
     # `PairDataset.reset_seed`, `lib/data_loaders.py:133-135`, seeded at

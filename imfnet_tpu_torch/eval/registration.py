@@ -98,3 +98,31 @@ def make_keypoint_registration(*, voxel_size: float = 0.025,
         }
 
     return register_kp
+
+
+def make_pair_registration(*, num_keypoints: int = 5000, voxel_size: float = 0.025,
+                           ransac_n: int = 3, num_hypotheses: int = 50000,
+                           inlier_thresh: float = 0.1, hypo_block: int = 12500,
+                           distance_multiplier: float = 1.5):
+    """Returns register(xyz0, f0, n0, xyz1, f1, n1, T_gt, cov, *, generator,
+    keypoint_u, samples) → the metrics dict of ``register_kp``: keypoints
+    sampled from the valid rows of each side, then ``register_kp``. The
+    draws come from ``generator``; ``keypoint_u`` (two uniform key vectors,
+    one per side) and ``samples`` (RANSAC sample indices) replace them."""
+    register_kp = make_keypoint_registration(
+        voxel_size=voxel_size, ransac_n=ransac_n,
+        num_hypotheses=num_hypotheses, inlier_thresh=inlier_thresh,
+        hypo_block=hypo_block, distance_multiplier=distance_multiplier)
+
+    def register(xyz0, f0, n0, xyz1, f1, n1, T_gt, covariance, *,
+                 generator: Optional[torch.Generator] = None,
+                 keypoint_u=None, samples=None):
+        u0, u1 = keypoint_u if keypoint_u is not None else (None, None)
+        v0 = torch.arange(xyz0.shape[0], device=xyz0.device) < n0
+        v1 = torch.arange(xyz1.shape[0], device=xyz1.device) < n1
+        i0, ok0 = sample_keypoints(v0, num_keypoints, generator=generator, u=u0)
+        i1, ok1 = sample_keypoints(v1, num_keypoints, generator=generator, u=u1)
+        return register_kp(xyz0[i0], f0[i0], ok0, xyz1[i1], f1[i1], ok1, T_gt,
+                           covariance, generator=generator, samples=samples)
+
+    return register

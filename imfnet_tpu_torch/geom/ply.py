@@ -1,4 +1,4 @@
-"""Minimal PLY point-cloud reader (pure numpy; ``imfnet_tpu.geom.ply.read_ply``).
+"""Minimal PLY point-cloud reader and writer (pure numpy; ``imfnet_tpu.geom.ply``).
 
 Replaces `o3d.io.read_point_cloud` for the fragment files used by the
 reference (`lib/data_loaders.py:256`, `dam.py:53`): ascii and
@@ -6,7 +6,7 @@ binary_little_endian PLYs with x/y/z plus optional normals and colors.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -94,3 +94,32 @@ def read_ply(path: str) -> Dict[str, np.ndarray]:
         if "points" not in out:
             raise ValueError(f"{path}: no vertex element found")
         return out
+
+
+def write_ply(path: str, points: np.ndarray, colors: Optional[np.ndarray] = None,
+              normals: Optional[np.ndarray] = None) -> None:
+    """Binary little-endian writer: x/y/z as float, optional normals, colours
+    in [0, 1] (or uint8) as uchar red/green/blue."""
+    n = len(points)
+    props = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
+    if normals is not None:
+        props += [("nx", "<f4"), ("ny", "<f4"), ("nz", "<f4")]
+    if colors is not None:
+        props += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
+    arr = np.zeros(n, dtype=np.dtype(props))
+    arr["x"], arr["y"], arr["z"] = points[:, 0], points[:, 1], points[:, 2]
+    if normals is not None:
+        arr["nx"], arr["ny"], arr["nz"] = normals[:, 0], normals[:, 1], normals[:, 2]
+    if colors is not None:
+        c = colors
+        if c.dtype != np.uint8:
+            c = np.clip(c * 255.0, 0, 255).astype(np.uint8)
+        arr["red"], arr["green"], arr["blue"] = c[:, 0], c[:, 1], c[:, 2]
+    with open(path, "wb") as f:
+        f.write(b"ply\nformat binary_little_endian 1.0\n")
+        f.write(f"element vertex {n}\n".encode())
+        type_names = {"<f4": "float", "u1": "uchar"}
+        for name, dt in props:
+            f.write(f"property {type_names[dt]} {name}\n".encode())
+        f.write(b"end_header\n")
+        f.write(arr.tobytes())

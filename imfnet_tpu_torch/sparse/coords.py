@@ -107,6 +107,38 @@ def unique_voxels(coords: torch.Tensor, valid: torch.Tensor, n_out: int):
     return uniq, sel, n_unique
 
 
+def voxel_cells(xyz: torch.Tensor, voxel_size: float) -> torch.Tensor:
+    """int32[N,3] ``floor(xyz / voxel_size)`` by true f32 division, as the
+    JAX package computes it. The divisor is a tensor on ``xyz``'s device: a
+    CUDA tensor divided by a Python float is multiplied by the reciprocal
+    instead, which can move a point lying on a cell boundary."""
+    v = torch.full((), voxel_size, dtype=xyz.dtype, device=xyz.device)
+    return torch.floor(xyz / v).to(torch.int32)
+
+
+def quantize(xyz: torch.Tensor, feats: torch.Tensor, valid: torch.Tensor,
+             voxel_size: float, n_out: int,
+             batch_index: torch.Tensor | int = 0):
+    """Voxelize points with no extent: ``floor(xyz / voxel)``, first
+    occurrence wins (`util/misc.py:82-87`). Keys pack 16 bits per axis
+    after a shift of 2^15 (``make_keys``), ±32 767 voxels from the origin.
+
+    Returns (SparseVoxels, sel int64[n_out] (-1 in padding), xyz_down[n_out,3]),
+    rows sorted by key; on overflow the first ``n_out`` voxels are kept."""
+    v = voxel_cells(xyz, voxel_size)
+    if isinstance(batch_index, int):
+        b = torch.full((v.shape[0],), batch_index, dtype=torch.int32, device=xyz.device)
+    else:
+        b = batch_index.to(torch.int32)
+    coords4 = torch.cat([b[:, None], v], dim=1)
+    uniq, sel, n_unique = unique_voxels(coords4, valid, n_out)
+    ok = sel >= 0
+    ss = sel.clamp_min(0)
+    f = torch.where(ok[:, None], feats[ss], torch.zeros_like(feats[:1]))
+    xyz_down = torch.where(ok[:, None], xyz[ss], torch.zeros_like(xyz[:1]))
+    return SparseVoxels(uniq, f, n_unique), sel, xyz_down
+
+
 def stride_coords(coords: torch.Tensor, valid: torch.Tensor, stride: int,
                   n_out: int):
     """Output coordinates of a stride-``s`` downsampling conv: the unique set

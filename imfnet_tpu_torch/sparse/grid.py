@@ -35,7 +35,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from imfnet_tpu_torch.sparse.coords import PAD_COORD, SparseVoxels, compact_first, row_mask
+from imfnet_tpu_torch.sparse.coords import (PAD_COORD, SparseVoxels, compact_first, row_mask,
+                                          voxel_cells)
 from imfnet_tpu_torch.sparse.kernel_map import CoordinatePyramid, LevelMaps
 from imfnet_tpu_torch.sparse.quant_kernel import (INVALID_KEY, sorted_compact,
                                                   sorted_compact_plain)
@@ -144,7 +145,7 @@ def cell_keys(xyz: torch.Tensor, valid: torch.Tensor, voxel_size: float,
     X, Y, Z = spec.extent
     B = spec.num_batches
     n = xyz.shape[0]
-    v = torch.floor(xyz / voxel_size).to(torch.int32)
+    v = voxel_cells(xyz, voxel_size)
     if isinstance(batch_index, int):
         b = torch.full((n,), batch_index, dtype=torch.int32, device=xyz.device)
     else:

@@ -138,3 +138,16 @@ def migrate_checkpoint_keys(
         with open(os.path.join(out_path, "meta.json"), "w") as f:
             json.dump(meta, f, indent=2)
     return moved
+
+
+def load_model_from_checkpoint(path: str, device) -> Tuple[torch.nn.Module, Config]:
+    """(model, config): the module a checkpoint's embedded config names,
+    with the checkpoint's weights, in ``eval()`` on ``device``, built for
+    inference (``build_model_from_config(eval_fast=True)``: the occupancy
+    conv1, same parameters)."""
+    from imfnet_tpu_torch.train.trainer import build_model_from_config
+
+    config = load_config_from_checkpoint(path)
+    model = build_model_from_config(config, eval_fast=True)
+    model.load_state_dict(_load_state_file(path)["model"], strict=True)
+    return model.to(device).eval(), config

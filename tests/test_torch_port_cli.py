@@ -1,5 +1,7 @@
 """The port's command line: ``train --dataset synthetic`` end to end on the
-CPU at a small size, ``--resume-dir``, and the refusals (no card, more than
+CPU at a small size, ``--resume-dir``, the benchmark subcommands
+(``generate-desc``, ``eval-3dmatch``, ``compare``, ``convert-desc``,
+``eval-kitti``) from a port checkpoint, and the refusals (no card, more than
 one device or process)."""
 import argparse
 import glob
@@ -13,10 +15,17 @@ import torch
 from imfnet_tpu import cli as jcli
 
 from imfnet_tpu_torch import cli
-from imfnet_tpu_torch.config import Config
-from imfnet_tpu_torch.train.checkpoint import load_checkpoint, load_config_from_checkpoint
+from imfnet_tpu_torch.config import Config, kitti_config, threedmatch_config
+from imfnet_tpu_torch.data.datasets import KITTIPairDataset
+from imfnet_tpu_torch.data.synthetic import synthetic_pair
+from imfnet_tpu_torch.eval import threedmatch
+from imfnet_tpu_torch.geom.ply import write_ply
+from imfnet_tpu_torch.train.checkpoint import (load_checkpoint, load_config_from_checkpoint,
+                                               save_checkpoint)
 from imfnet_tpu_torch.train.state import create_train_state
 from imfnet_tpu_torch.train.trainer import build_model_from_config
+
+from test_torch_port_kitti import write_kitti_root
 
 SMALL = ["--dataset", "synthetic", "--batch-size", "1", "--lr", "0.05", "--voxel-size", "0.05",
          "--max-points", "1024", "--model-n-out", "16", "--conv1-kernel-size", "3",
@@ -99,10 +108,115 @@ def test_train_refuses_without_a_card_and_beyond_one_device(tmp_path, monkeypatc
     with pytest.raises(NotImplementedError, match="one process"):
         cli.main(["train", *SMALL, "--device", "cpu", "--num-processes", "2",
                   "--process-id", "1", "--coordinator", "localhost:1234", *out])
-    with pytest.raises(NotImplementedError, match="1.9"):
-        cli.main(["train", "--dataset", "kitti", "--device", "cpu", *out])
+    # the KITTI datasets are ported: with no scans under --kitti-root the
+    # loader finds none
+    with pytest.raises(AssertionError, match="no velodyne data"):
+        cli.main(["train", "--dataset", "kitti", "--device", "cpu",
+                  "--kitti-root", str(tmp_path), *out])
     with pytest.raises(SystemExit):
-        cli.main(["generate-desc"])          # not ported yet: not registered
+        cli.main(["generate-desc"])          # --checkpoint and the roots are required
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["train", *SMALL, *out])
+
+
+# ---- the benchmark subcommands ---------------------------------------------
+
+SCENE = "7-scenes-redkitchen"
+TINY = dict(conv1_kernel_size=3, model_n_out=16, compute_dtype="float32",
+            image_H=24, image_W=32, num_rand_keypoints=256, ransac_max_iteration=4096)
+
+
+def _checkpoint(out_dir, config):
+    """A checkpoint the port's trainer would write, of a tiny model."""
+    model = build_model_from_config(config)
+    return save_checkpoint(str(out_dir), "checkpoint", create_train_state(model, config, 1),
+                           config, 1, 0.0, 1, config.best_val_metric)
+
+
+def _json_lines(capsys):
+    return [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("{")]
+
+
+def _write_scene(root):
+    """Three PLY fragments of one scene (4 000 points each, the synthetic
+    pair's geometry), gt.log and gt.info for pairs (0, 1) and (1, 2)."""
+    scene_dir = root / "pcloud" / SCENE / "seq-01"
+    bench = root / "bench" / SCENE
+    os.makedirs(scene_dir)
+    os.makedirs(bench)
+    for k in range(3):
+        pair = synthetic_pair(np.random.RandomState(k), n_points=4000, image_hw=(24, 32))
+        write_ply(str(scene_dir / f"cloud_bin_{k}.ply"), pair.xyz0)
+    with open(bench / "gt.log", "w") as flog, open(bench / "gt.info", "w") as finfo:
+        for i, j in [(0, 1), (1, 2)]:
+            flog.write(f"{i} {j} 3\n" + "\n".join("\t".join(f"{v:.6f}" for v in r)
+                                                   for r in np.eye(4)) + "\n")
+            finfo.write(f"{i} {j} 3\n" + "\n".join("\t".join(f"{v:.6f}" for v in r)
+                                                    for r in np.eye(6) * 400) + "\n")
+
+
+def test_benchmark_subcommands_on_the_cpu(tmp_path, monkeypatch, capsys):
+    """generate-desc → eval-3dmatch → compare → convert-desc from a port
+    checkpoint, each printing its JSON; --num-devices 2 and a missing card
+    raise."""
+    monkeypatch.setattr(threedmatch, "TEST_SCENE_NAMES", [SCENE])
+    _write_scene(tmp_path)
+    ckpt = _checkpoint(tmp_path / "run", threedmatch_config(**TINY))
+    desc = tmp_path / "desc"
+    common = ["--checkpoint", ckpt, "--pcloud-root", str(tmp_path / "pcloud"),
+              "--out-root", str(desc)]
+    cli.main(["generate-desc", *common, "--device", "cpu"])
+    (stats,) = _json_lines(capsys)
+    assert stats["count"] == 3 and set(stats) == {"all_time", "avg_time", "count"}
+    d = np.load(desc / SCENE / "seq-01" / "cloud_bin_0.npz")
+    assert d["feature"].shape[1] == 16 and len(d["xyz"]) == len(d["feature"]) > 1000
+
+    cli.main(["eval-3dmatch", "--checkpoint", ckpt, "--desc-root", str(desc),
+              "--out-root", str(tmp_path / "eval"), "--benchmark-dir", str(tmp_path / "bench"),
+              "--device", "cpu"])
+    summary = _json_lines(capsys)[-1]
+    assert summary["num_pairs"] == 2 and summary["benchmark"] == "bench"
+    assert {"FMR", "registration_recall", "RRE", "RTE", "inlier_ratio"} <= set(summary)
+
+    cli.main(["compare", "--desc-roots", f"A={desc}", f"B={desc}", "--benchmark-dir",
+              str(tmp_path / "bench"), "--out-root", str(tmp_path / "cmp"), "--device", "cpu"])
+    cmp = _json_lines(capsys)[-1]
+    assert set(cmp["per_method"]) == {"A", "B"} and os.path.exists(cmp["csv"])
+
+    ext, kp = tmp_path / "ext" / SCENE, tmp_path / "kp" / SCENE
+    os.makedirs(ext)
+    os.makedirs(kp)
+    np.save(ext / "cloud_bin_0.desc.SpinNet.bin.npy", d["feature"])
+    np.save(kp / "cloud_bin_0_keypts.npy", d["xyz"])
+    cli.main(["convert-desc", "--desc-root", str(tmp_path / "ext"), "--keypoint-root",
+              str(tmp_path / "kp"), "--out-root", str(tmp_path / "conv")])
+    assert _json_lines(capsys) == [{"written": 1}]
+
+    with pytest.raises(NotImplementedError, match="1.12"):
+        cli.main(["generate-desc", *common, "--device", "cpu", "--num-devices", "2"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["generate-desc", *common])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["eval-3dmatch", "--desc-root", str(desc), "--out-root",
+                  str(tmp_path / "eval2"), "--benchmark-dir", str(tmp_path / "bench")])
+
+
+def test_eval_kitti_subcommand_on_the_cpu(tmp_path, monkeypatch, capsys):
+    root = write_kitti_root(tmp_path / "kitti")
+    monkeypatch.setitem(KITTIPairDataset.DATA_FILES, "test", str(root / "test_list.txt"))
+    cfg = kitti_config(dataset="KITTIPairDataset", max_points=4096, kitti_max_time_diff=3,
+                       **TINY)
+    ckpt = _checkpoint(tmp_path / "run", cfg)
+    cli.main(["eval-kitti", "--checkpoint", ckpt, "--kitti-root", str(root), "--device", "cpu"])
+    result = _json_lines(capsys)[-1]
+    assert result["num_pairs"] == 2 and result["failed_loads"] == 0
+    assert 0.0 <= result["success_rate"] <= 1.0
+    with pytest.raises(NotImplementedError, match="1.12"):
+        cli.main(["eval-kitti", "--checkpoint", ckpt, "--kitti-root", str(root),
+                  "--device", "cpu", "--num-devices", "2"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["eval-kitti", "--checkpoint", ckpt, "--kitti-root", str(root)])

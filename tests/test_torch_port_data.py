@@ -295,13 +295,17 @@ def test_split_lists_are_the_reference_ones():
         pds._resolve_data_file("./config/no_such_split.txt")
 
 
-def test_kitti_datasets_are_refused_until_ported():
-    with pytest.raises(NotImplementedError, match="1.9"):
-        pds.make_data_loader(kitti_config(), "train", 1)
+def test_kitti_datasets_are_refused_until_ported(tmp_path):
+    """Ported since: a KITTI config builds its dataset, which finds no scans
+    under an empty root, as the JAX package's does; an unknown name is
+    refused; the port knows every dataset the JAX package knows."""
+    cfg = kitti_config(kitti_root=str(tmp_path))
+    with pytest.raises(AssertionError, match="no velodyne data"):
+        pds.make_data_loader(cfg, "train", 1, device="cpu")
     with pytest.raises(ValueError, match="unknown dataset"):
         pds.make_data_loader(threedmatch_config(dataset="NoSuchDataset"), "train", 1)
-    assert set(pds.dataset_str_mapping) == set(jds.dataset_str_mapping) - set(
-        pds.NOT_PORTED_DATASETS)
+    assert set(pds.dataset_str_mapping) == set(jds.dataset_str_mapping)
+    assert pds.dataset_class(cfg.dataset) is pds.KITTINMPairDataset
 
 
 # ---- the loader ---------------------------------------------------------------

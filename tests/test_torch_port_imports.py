@@ -60,13 +60,19 @@ def test_scan_covers_the_cli_the_trainer_and_the_split_lists():
                  "imfnet_tpu_torch/data/datasets.py", "imfnet_tpu_torch/train/trainer.py",
                  "imfnet_tpu_torch/train/checkpoint.py", "imfnet_tpu_torch/geom/image.py",
                  "imfnet_tpu_torch/geom/ply.py", "imfnet_tpu_torch/geom/trajectory.py",
-                 "imfnet_tpu_torch/utils/timer.py", "chip_smoke.py"):
+                 "imfnet_tpu_torch/utils/timer.py", "chip_smoke.py",
+                 "imfnet_tpu_torch/eval/extract.py", "imfnet_tpu_torch/eval/threedmatch.py",
+                 "imfnet_tpu_torch/eval/compare.py", "imfnet_tpu_torch/eval/kitti.py",
+                 "imfnet_tpu_torch/match/icp.py", "imfnet_tpu_torch/sparse/build.py",
+                 "imfnet_tpu_torch/utils/hashing.py", "imfnet_tpu_torch/utils/native.py",
+                 "imfnet_tpu_torch/utils/visualization.py"):
         assert name in names, name
     # the split lists are the port's own copy, resolved beside its loader
     from imfnet_tpu_torch.data import datasets
     for split in ("train", "val", "test"):
-        path = datasets._resolve_data_file(f"./config/{split}_3dmatch.txt")
-        assert pathlib.Path(path).resolve().is_relative_to(PORT)
+        for data in ("3dmatch", "kitti"):
+            path = datasets._resolve_data_file(f"./config/{split}_{data}.txt")
+            assert pathlib.Path(path).resolve().is_relative_to(PORT)
 
 
 def test_trainer_and_datasets_import_neither_pil_nor_jax():
@@ -75,6 +81,9 @@ def test_trainer_and_datasets_import_neither_pil_nor_jax():
         "import imfnet_tpu_torch.data.datasets\n"
         "import imfnet_tpu_torch.train.trainer\n"
         "import imfnet_tpu_torch.cli\n"
+        "import imfnet_tpu_torch.eval.threedmatch\n"
+        "import imfnet_tpu_torch.eval.compare\n"
+        "import imfnet_tpu_torch.eval.kitti\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         f"{FORBIDDEN + ('PIL',)!r})\n"
         "assert not bad, bad\n"

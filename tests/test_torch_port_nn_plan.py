@@ -67,6 +67,21 @@ def test_plan_fills_the_card_at_the_main_path_shape():
     assert nn_plan(100_000, 5000, 32).split == 1
 
 
+@pytest.mark.parametrize("n,m,d", [(131072, 131072, 32), (131072, 131072, 3),
+                                   (65536, 131072, 3)])
+def test_plan_holds_at_the_kitti_shapes(n, m, d):
+    """KITTI's registration over every voxel (131 072² × 32) and ICP at scan
+    scale (clouds padded to 2^16-2^17, D = 3): enough query tiles that no
+    split is needed, a grid far inside CUDA's limits, shared memory that
+    fits, and a scratch whose int32 offsets do not overflow."""
+    plan = nn_plan(n, m, d)
+    assert plan.split == 1 and plan.blocks(n) == n // plan.bq >= TARGET_BLOCKS
+    assert nn_smem_bytes(plan.bq, plan.br, d) <= SMEM_LIMIT
+    pad = 128
+    rows = -(-n // pad) * pad + -(-m // pad) * pad
+    assert (d + 1) * rows < 2 ** 31
+
+
 @pytest.mark.parametrize("bq,br,threads", sorted(NN_TILES))
 @pytest.mark.parametrize("d", KERNEL_DIMS)
 def test_every_instance_fits_shared_memory(bq, br, threads, d):
