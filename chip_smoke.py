@@ -140,6 +140,39 @@ Phases, each printed as one JSON line:
             skipped and evaluated pairs adding up to the file list; last,
             one ICP call under torch.profiler (kitti_icp_profile: device
             busy ms, idle share, kernel launches, top kernels)
+  zoo       SimpleNetBN2C at full width (channels 32/64/128/256, tr
+            32/64/64/128, conv1 k5, 32-d, bf16) through the bucketed
+            extractor on fragment 0 of the benchmark scene (written anew):
+            ms and launches a fragment (C 1, D 1, A 8 with conv1 in the
+            scalar variant, asserted), kernel A at each of its 8 convs
+            against the plain version (1e-4 of scale; variants asserted),
+            then 3 training steps on the train phase's batch (finite losses;
+            A 30 of which 2 scalar, B 2 a step, asserted)
+  convert   the seeded full-width ResUNetBN2C written as a released
+            checkpoint would hold it (MinkowskiEngine offset order,
+            perceiver_io names, the torchvision trunk) into a .pth, then cli
+            convert-imfnet and generate-desc on fragment 0 with the converted
+            and with the original weights: tensors and descriptors bit-equal
+  dam       cli dam with the converted checkpoint on fragment 0, a seeded
+            120 x 160 PNG, --point 780 and --image-out: the command's
+            launches (A 49: 20 for the DAM's forward, 20 + 9 dX for the
+            saliency; C 1, D 1), the ms of each map, A's 9 decoder dX calls
+            against the plain version at the fragment's pyramid, card vs CPU
+            in f32 on 6 000 of its points (DAM 1e-4, saliency 1e-3 of the
+            largest value), the PLY's coloured points and the PNG's shape
+  visualize cli visualize on fragments 0 and 1 with seeded PNGs: launches
+            (C 1, D 1, A 20 a fragment, B 2 a pair, asserted), fitness and
+            pose (finite, rigid), both views holding both clouds, coloured
+  offline   a 3DMatch-style sequence of 100 480 x 640 depth PNGs of a
+            synthetic room, cli fuse-fragments at 256^3 (2 fragments, ms a
+            frame), fragment 0 fused again on the CPU (point count within
+            0.5 %, every point within 2 voxels of the other cloud), cli
+            compute-overlap on the six benchmark fragments in the world's
+            frame (kernel B, one launch a pair at up to 204 000^2 x 3, held
+            as in the kitti phase and timed beside its bound, its plain
+            version and cdist + min; kept pairs and ratios against an f64
+            KD-tree within 1e-3), cli compute-radius's seconds, and which
+            voxel dedup ran (the native library or the numpy fallback)
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; so does a machine without CUDA.
 """
@@ -1542,14 +1575,16 @@ FRAGMENT_LAUNCHES = {
 SMALL_FRAGMENT_POINTS = 6000          # the card-vs-CPU fragment
 
 
-def write_benchmark_scene(root, seed=0):
+def write_benchmark_scene(root, seed=0, world_frame=False):
     """A 3DMatch-layout scene: BENCH_FRAGMENTS PLY fragments, each a random
     85 % of one synthetic world (the synthetic_pair geometry, 1.5 m) seen
     from its own random pose, and gt.log / gt.info for the consecutive
     pairs (gt maps fragment j into fragment i's frame). Fragment BENCH_WIDE
     also holds 4 000 points of a wall 16 m away, so its voxel span exceeds
     the 256-voxel × 0.025 m grid extent (the exact path). No images: the reader uses
-    a zero image. Returns (pcloud root, benchmark dir, the number of pairs)."""
+    a zero image. With ``world_frame`` the same points are written in the
+    world's frame, as fused fragments of one scene share it. Returns
+    (pcloud root, benchmark dir, the number of pairs)."""
     rng = np.random.RandomState(seed)
     world = _surface_cloud(rng, BENCH_WORLD_POINTS, 1.5).astype(np.float64)
     scene_dir = os.path.join(root, "pcloud", BENCH_SCENE, "seq-01")
@@ -1566,7 +1601,7 @@ def write_benchmark_scene(root, seed=0):
         if k == BENCH_WIDE:
             wall = np.c_[np.full(4000, 16.0), rng.rand(4000, 2) - 0.5]
             pts = np.concatenate([pts, wall])
-        inv = np.linalg.inv(P)
+        inv = np.eye(4) if world_frame else np.linalg.inv(P)
         write_ply(os.path.join(scene_dir, f"cloud_bin_{k}.ply"),
                   (pts @ inv[:3, :3].T + inv[:3, 3]).astype(np.float32))
     pairs = [(k, k + 1) for k in range(BENCH_FRAGMENTS - 1)]
@@ -1630,9 +1665,10 @@ def counted_registers(per_pair):
     return make
 
 
-def run_cli(argv):
+def run_cli(argv, text=False):
     """``python -m imfnet_tpu_torch.cli`` in this process (so that the launch
-    counts are visible): the JSON line it prints, and its seconds."""
+    counts are visible): the JSON line it prints (with ``text``, all it
+    prints), and its seconds."""
     import contextlib
     import io
 
@@ -1641,6 +1677,8 @@ def run_cli(argv):
     with contextlib.redirect_stdout(buf):
         cli.main(argv)
     seconds = time.perf_counter() - t
+    if text:
+        return buf.getvalue(), seconds
     lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
     return json.loads(lines[-1]), seconds
 
@@ -1685,18 +1723,10 @@ def hold_convs(pyr, gen, where):
     """Kernel A at each distinct conv of the forward on ``pyr`` against its
     plain version (CONV_TOL_REL, the tensor-core variant): the largest
     error."""
-    err = 0.0
-    for name, level, which, cin, cout in {c[1:]: c for c in MAIN_PATH_CONVS}.values():
-        x, nbr, w = conv_inputs(pyr, level, which, cin, cout, gen)
-        before = gather_gemm.launches_tc
-        out, ref = gather_gemm(x, nbr, w), gather_gemm_plain(x, nbr, w)
-        e = float((out - ref).abs().max())
-        if gather_gemm.launches_tc != before + 1 or e > CONV_TOL_REL * max(
-                1.0, float(ref.abs().max())):
-            raise AssertionError(f"{where}: kernel A at {name}: err {e}, or not the "
-                                 f"tensor-core variant")
-        err = max(err, e)
-    return err
+    rows = hold_conv_list(pyr, MAIN_PATH_CONVS, gen, where)
+    if any(r["variant"] != "tc" for r in rows):
+        raise AssertionError(f"{where}: kernel A took {[r['variant'] for r in rows]}")
+    return max(r["max_abs_err"] for r in rows)
 
 
 def hold_fragment_kernels(cfg, raw, n_raw, extent, bucket, gen):
@@ -2082,6 +2112,568 @@ def phase_kitti(gen):
     return icp_launches, eval_launches, icp_nn, feats_nn
 
 
+# ---- every remaining subcommand: the zoo, the converter, DAM, the visualizer,
+# the offline tools --------------------------------------------------------------
+
+ZOO_MODEL = "SimpleNetBN2C"
+# SimpleNetBN2C's 8 kernel-A convs (channels 32/64/128/256, tr 32/64/64/128):
+# (name, level, map, cin, cout); conv1 (k 5^3, cin 1) is the scalar variant
+ZOO_CONVS = (("conv1", 0, "k5", 1, 32), ("conv2", 1, "down", 32, 64),
+             ("conv3", 2, "down", 64, 128), ("conv4", 3, "down", 128, 256),
+             ("conv4_tr", 2, "up", 256, 128), ("conv3_tr", 1, "up", 256, 64),
+             ("conv2_tr", 0, "up", 128, 64), ("conv1_tr", 0, "k3_same", 96, 32))
+ZOO_FRAGMENT_LAUNCHES = {"sparse_conv_gather_gemm": 8, "flash_nn": 0, "sorted_compact": 1,
+                         "word_match": 1, "sparse_conv_gather_gemm.tc": 7,
+                         "sparse_conv_gather_gemm.scalar": 1}
+# a training step: per side 8 forward convs and the dX calls of the 7 whose
+# input needs a gradient (not conv1's); one positive search per pair
+ZOO_STEP_LAUNCHES = {"sparse_conv_gather_gemm": 30, "flash_nn": 2, "sorted_compact": 0,
+                     "word_match": 0, "sparse_conv_gather_gemm.tc": 28,
+                     "sparse_conv_gather_gemm.scalar": 2}
+ZOO_STEPS = 3
+# the image saliency's backward reaches the image through the fusion, so
+# only the 9 decoder convs after it take a dX call (kernel A through their
+# inverse maps); the encoder's inputs need no gradient
+DAM_DX_CONVS = MAIN_PATH_CONVS[11:]
+DAM_POINT = 780
+DAM_REL, SALIENCY_REL = 1e-4, 1e-3      # of each map's largest value
+OFFLINE_FRAMES, OFFLINE_HW = 100, (480, 640)
+OFFLINE_K = np.array([[585.0, 0.0, 320.0], [0.0, 585.0, 240.0], [0.0, 0.0, 1.0]])
+# the room's inside, and two boxes on its floor (m; y points down, as the camera's)
+ROOM = (np.array([-3.0, -1.6, -2.5]), np.array([3.0, 1.4, 3.5]))
+ROOM_BOXES = ((np.array([0.6, 0.4, 1.2]), np.array([1.5, 1.4, 2.1])),
+              (np.array([-1.9, -0.2, -0.6]), np.array([-1.1, 1.4, 0.4])))
+# card against CPU fusion: f32 projections summed in another order may move a
+# voxel across the truncation or a pixel's rounding edge, which adds or drops
+# a surface voxel beside one the other run keeps
+FUSE_COUNT_REL = 5e-3                   # |points_card - points_cpu| / points_cpu
+FUSE_DIST_VOXELS = 2.0                  # the largest nearest-point distance, in voxels
+OVERLAP_RATIO_ATOL = 1e-3
+
+
+def conv_call(pyr, name, level, which, cin, cout, gen, backward=False):
+    """(x, nbr, w) of one conv as ``conv_inputs`` makes them, and of conv1,
+    whose map is the pyramid's k5 map and whose input is one channel."""
+    if which != "k5":
+        return conv_inputs(pyr, level, which, cin, cout, gen, backward)
+    nbr = pyr.k5_l0
+    x = torch.randn((nbr.shape[0], cin), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((nbr.shape[1], cin, cout), generator=gen, device="cuda")
+         * (nbr.shape[1] * cin) ** -0.5).to(torch.bfloat16)
+    return x, nbr, w
+
+
+def hold_conv_list(pyr, convs, gen, where, backward=False, timed=False):
+    """Kernel A against its plain version (CONV_TOL_REL) at each distinct
+    conv of ``convs`` on ``pyr`` (with ``backward`` at its dX call), in the
+    variant ``conv_plan`` gives, asserted by the variant's counter; with
+    ``timed`` each graph-timed beside its plain version and its bound."""
+    rows, seen = [], set()
+    for name, level, which, cin, cout in convs:
+        if (level, which, cin, cout) in seen:
+            continue
+        seen.add((level, which, cin, cout))
+        x, nbr, w = conv_call(pyr, name, level, which, cin, cout, gen, backward)
+        ci, co = w.shape[1], w.shape[2]
+        plan = conv_plan(nbr.shape[0], ci, co, nbr.shape[1], x.dtype)
+        attr = "launches_tc" if plan.variant == "tc" else "launches_scalar"
+        before = getattr(gather_gemm, attr)
+        out, ref = gather_gemm(x, nbr, w), gather_gemm_plain(x, nbr, w)
+        err = float((out - ref).abs().max())
+        tol = CONV_TOL_REL * max(1.0, float(ref.abs().max()))
+        if getattr(gather_gemm, attr) != before + 1 or err > tol:
+            raise AssertionError(f"{where}: kernel A at {name}: err {err} > {tol}, or not "
+                                 f"the {plan.variant} variant")
+        row = {"conv": name + (" dX" if backward else ""), "level": level, "map": which,
+               "cin": ci, "cout": co, "k_vol": nbr.shape[1], "n_out": nbr.shape[0],
+               "variant": plan.variant, "max_abs_err": err, "tol": tol}
+        if timed:
+            nnz = int((nbr >= 0).sum())
+            rows_read = int(torch.unique(nbr[nbr >= 0]).numel())
+            ops_ms = 2.0 * nnz * ci * co / PEAK_BF16_FLOPS * 1e3
+            bytes_ms = (rows_read * ci * 2 + nbr.numel() * 4 + nbr.shape[1] * ci * co * 2
+                        + nbr.shape[0] * co * 4) / PEAK_BYTES * 1e3
+            row.update(ms=graph_ms(lambda: gather_gemm(x, nbr, w), 10),
+                       plain_ms=graph_ms(lambda: gather_gemm_plain(x, nbr, w), 3),
+                       bound_ms=max(ops_ms, bytes_ms),
+                       bound_by="operations" if ops_ms > bytes_ms else "bytes")
+        rows.append(row)
+    return rows
+
+
+def phase_zoo(frag0, gen):
+    """SimpleNetBN2C at full width (conv1 k5, 32-d, bf16) through the
+    bucketed extractor on a benchmark fragment (ms and launches a fragment:
+    C 1, D 1, A 8 of which conv1 scalar, asserted), kernel A at each of its
+    convs against the plain version, then ZOO_STEPS training steps on the
+    train phase's batch (finite losses; A 30: 28 tensor-core + 2 scalar,
+    B 2 a step, asserted)."""
+    from imfnet_tpu_torch.geom.ply import read_ply
+
+    cfg = threedmatch_config(model=ZOO_MODEL)
+    model = build_model_from_config(cfg, eval_fast=True).cuda().eval()
+    raw, n_raw = pad_points_bucketed(read_ply(frag0)["points"].astype(np.float32))
+    image = np.zeros((1, cfg.image_H, cfg.image_W, 3), np.float32)
+    extract = make_bucketed_extractor(model, config=cfg)
+    extract(raw, n_raw, image)                    # the process's first call at this shape
+    reset_counts()
+    frag_ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        xyz, feats = extract(raw, n_raw, image)   # numpy: the card has finished
+        frag_ms.append((time.perf_counter() - t) * 1e3)
+    per_frag = {k: v / 5 for k, v in read_counts().items()}
+    choice = extract.last
+    norms = np.linalg.norm(feats, axis=1)
+    _, _, _, pyr = fragment_tables(cfg, raw, n_raw, choice.extent, choice.bucket)
+    convs = hold_conv_list(pyr, ZOO_CONVS, gen, "zoo", timed=True)
+
+    tcfg = cfg.replace(batch_size=TRAIN_BATCH)
+    batch = synthetic_batch(np.random.RandomState(0), batch_size=TRAIN_BATCH,
+                            n_points=200_000, n_pad=TRAIN_N_PAD,
+                            image_hw=(cfg.image_H, cfg.image_W))
+    state = create_train_state(train_model(tcfg, "cuda"), tcfg, steps_per_epoch=100)
+    step = make_train_step(tcfg, map_impl="search")
+    step_gen = torch.Generator(device="cuda").manual_seed(0)
+    reset_counts()
+    step_ms, losses = [], []
+    for _ in range(ZOO_STEPS):
+        t = time.perf_counter()
+        state, metrics = step(state, batch, step_gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append({k: float(v) for k, v in metrics.items()})
+    step_launches = read_counts()
+    conv1 = next(c for c in convs if c["conv"] == "conv1")
+    emit({"phase": "zoo", "model": ZOO_MODEL, "compute_dtype": cfg.compute_dtype,
+          "raw_points": int(n_raw), "voxels": choice.voxels, "bucket": choice.bucket,
+          "path": "exact" if choice.extent is None else "grid",
+          "fragment_ms": {"median": float(np.median(frag_ms)), "all": frag_ms},
+          "launches_per_fragment": per_frag, "descriptor_norm_range": [float(norms.min()),
+                                                                       float(norms.max())],
+          "convs": convs, "conv1_ms": conv1["ms"], "conv1_plain_ms": conv1["plain_ms"],
+          "conv1_bound_ms": conv1["bound_ms"],
+          "train_step_ms": step_ms, "train_losses": losses,
+          "train_launches_per_step": {k: v / ZOO_STEPS for k, v in step_launches.items()}})
+    if per_frag != ZOO_FRAGMENT_LAUNCHES or len(choice.tried) != 1:
+        raise AssertionError(f"zoo: a fragment launched {per_frag} (buckets {choice.tried}), "
+                             f"want {ZOO_FRAGMENT_LAUNCHES}")
+    if not (np.isfinite(feats).all() and np.allclose(norms, 1.0, atol=1e-3)):
+        raise AssertionError("zoo: descriptors are not finite unit vectors")
+    if [c["variant"] for c in convs] != ["scalar"] + ["tc"] * 7:
+        raise AssertionError(f"zoo: kernel A's variants {[c['variant'] for c in convs]}")
+    if step_launches != {k: v * ZOO_STEPS for k, v in ZOO_STEP_LAUNCHES.items()}:
+        raise AssertionError(f"zoo: {step_launches} over {ZOO_STEPS} steps, "
+                             f"want {ZOO_STEP_LAUNCHES} a step")
+    if not all(np.isfinite(list(m.values())).all() for m in losses):
+        raise AssertionError(f"zoo: a loss is not finite: {losses}")
+    return {"fragment": per_frag, "step": {k: v / ZOO_STEPS for k, v in step_launches.items()},
+            "convs": convs}
+
+
+def reference_state_dict(sd, conv1_kernel_size):
+    """A port ResUNetIMF state_dict in the released checkpoint's layout: the
+    inverse of ``utils.torch_weights.convert_imfnet_torch`` (MinkowskiEngine
+    offset order, ``.kernel`` names, residual blocks numbered from 1, the
+    torchvision trunk under ``img_encoder.backbone``, PerceiverIO's names
+    under ``perceiver_io``)."""
+    from imfnet_tpu_torch.utils.torch_weights import me_offset_permutation
+
+    fusion = {"cross_norm_q": "cross_attend_blocks.0.norm",
+              "cross_norm_ctx": "cross_attend_blocks.0.norm_context",
+              "cross_attn": "cross_attend_blocks.0.fn",
+              "cross_ff_norm": "cross_attend_blocks.1.norm",
+              "cross_ff.wi": "cross_attend_blocks.1.fn.net.0",
+              "cross_ff.wo": "cross_attend_blocks.1.fn.net.2"}
+    out = {}
+    for key, value in sd.items():
+        mod, _, leaf = key.rpartition(".")
+        parts = mod.split(".")
+        v = value.detach().cpu().clone()
+        if parts[0] == "img_encoder":
+            sub = parts[1:]
+            if sub[0].startswith("layer"):
+                layer, block = sub[0].split("_block")
+                sub = [layer, block] + [{"down_conv": "downsample.0",
+                                         "down_bn": "downsample.1"}.get(sub[1], sub[1])]
+            out[".".join(["img_encoder.backbone", *sub, leaf])] = v
+        elif parts[0] == "attention_fusion":
+            rest = ".".join(parts[1:])
+            name = next(fusion[p] + rest[len(p):] for p in sorted(fusion, key=len, reverse=True)
+                        if rest == p or rest.startswith(p + "."))
+            out[f"perceiver_io.{name}.{leaf}"] = v
+        else:
+            if parts[0].startswith("block"):   # conv0/norm0 → conv1/norm1
+                parts[1] = parts[1][:-1] + str(int(parts[1][-1]) + 1)
+            ref = ".".join(parts)
+            if leaf == "weight" and v.dim() == 3:
+                k = conv1_kernel_size if ref == "conv1" else 3
+                me = torch.empty_like(v)
+                me[torch.from_numpy(me_offset_permutation(k, reverse=ref.endswith("_tr")))] = v
+                out[ref + ".kernel"] = me
+            elif leaf == "weight" and v.dim() == 2:
+                out[ref + ".kernel"] = v
+            else:
+                out[f"{ref}.{leaf}"] = v
+    return out
+
+
+def phase_convert(root, scene_dir):
+    """A reference-layout .pth of the seeded full-width ResUNetBN2C through
+    ``cli convert-imfnet``, then ``generate-desc`` on fragment 0 with the
+    converted checkpoint and with the original weights: the descriptors must
+    be bit-equal. Returns the converted checkpoint."""
+    cfg = threedmatch_config()
+    model = build_model_from_config(cfg)
+    sd = model.state_dict()
+    pth = os.path.join(root, "imfnet.pth")
+    ref_sd = reference_state_dict(sd, cfg.conv1_kernel_size)
+    n_ref = len(ref_sd)
+    torch.save({"state_dict": ref_sd,
+                "config": {"model": cfg.model, "model_n_out": cfg.model_n_out,
+                           "conv1_kernel_size": cfg.conv1_kernel_size,
+                           "normalize_feature": cfg.normalize_feature,
+                           "voxel_size": cfg.voxel_size},
+                "epoch": 1, "best_val": 0.0, "best_val_epoch": 1,
+                "best_val_metric": cfg.best_val_metric}, pth)
+    converted = os.path.join(root, "converted")
+    reset_counts()
+    info, convert_s = run_cli(["convert-imfnet", "--pth", pth, "--out", converted])
+    state = torch.load(os.path.join(converted, "state.pt"), weights_only=True)["model"]
+    same_tensors = set(state) == set(sd) and all(torch.equal(state[k], sd[k]) for k in sd)
+    original = os.path.join(root, "original")
+    os.makedirs(original)
+    torch.save({"model": sd}, os.path.join(original, "state.pt"))
+    with open(os.path.join(converted, "meta.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(original, "meta.json"), "w") as f:
+        json.dump(meta, f)
+
+    pcloud = os.path.join(root, "one_fragment")
+    os.makedirs(os.path.join(pcloud, BENCH_SCENE, "seq-01"))
+    os.symlink(os.path.join(scene_dir, "cloud_bin_0.ply"),
+               os.path.join(pcloud, BENCH_SCENE, "seq-01", "cloud_bin_0.ply"))
+    saved = threedmatch.TEST_SCENE_NAMES
+    threedmatch.TEST_SCENE_NAMES = [BENCH_SCENE]
+    desc, seconds = {}, {}
+    try:
+        for name, ckpt in (("converted", converted), ("original", original)):
+            _, seconds[name] = run_cli(["generate-desc", "--checkpoint", ckpt, "--pcloud-root",
+                                        pcloud, "--out-root", os.path.join(root, "desc_" + name)])
+            desc[name] = np.load(os.path.join(root, "desc_" + name, BENCH_SCENE, "seq-01",
+                                              "cloud_bin_0.npz"))
+    finally:
+        threedmatch.TEST_SCENE_NAMES = saved
+    launches = read_counts()
+    equal = (np.array_equal(desc["converted"]["xyz"], desc["original"]["xyz"])
+             and np.array_equal(desc["converted"]["feature"], desc["original"]["feature"]))
+    emit({"phase": "convert", "pth_tensors": n_ref,
+          "convert": info, "convert_seconds": convert_s, "converted_meta_keys": sorted(meta),
+          "state_dict_tensors_equal": same_tensors, "generate_desc_seconds": seconds,
+          "descriptors": list(desc["converted"]["feature"].shape),
+          "descriptors_bit_equal": equal, "launches": launches})
+    if not (same_tensors and equal and meta.get("converted_from") == os.path.abspath(pth)):
+        raise AssertionError(f"convert: tensors equal {same_tensors}, descriptors bit-equal "
+                             f"{equal}, meta {meta.get('converted_from')}")
+    return converted, launches
+
+
+def phase_dam(root, ckpt, frag0, gen):
+    """``cli dam`` at full width on a benchmark fragment with a seeded
+    120 x 160 PNG, --point DAM_POINT and --image-out: launches (A 20 for the
+    DAM's forward, 20 + 9 dX for the saliency, C 1, D 1), the ms of each
+    map, kernel A's dX against its plain version at the fragment's pyramid,
+    card against CPU in f32 on 6 000 of its points, and the files."""
+    from imfnet_tpu_torch.dam.dam import descriptor_activation_map, image_activation_map
+    from imfnet_tpu_torch.geom.image import load_image, process_image, save_image
+    from imfnet_tpu_torch.geom.ply import read_ply
+
+    png = os.path.join(root, "dam_image.png")
+    save_image(png, np.random.RandomState(8).rand(120, 160, 3))
+    out_ply, out_png = os.path.join(root, "dam.ply"), os.path.join(root, "dam.png")
+    reset_counts()
+    text, cli_s = run_cli(["dam", "--checkpoint", ckpt, "--ply", frag0, "--image", png,
+                           "--point", str(DAM_POINT), "--out", out_ply, "--image-out", out_png],
+                          text=True)
+    cli_launches = read_counts()
+
+    model, cfg = load_model_from_checkpoint(ckpt, torch.device("cuda"))
+    points = read_ply(frag0)["points"].astype(np.float32)
+    image = process_image(load_image(png), cfg.image_H, cfg.image_W)
+    sv, pyr, img, _ = cli.dam_inputs(cfg, points, image, torch.device("cuda"))
+    timed = {}
+    for name, fn in (("dam", descriptor_activation_map), ("saliency", image_activation_map)):
+        fn(model, sv, pyr, img, DAM_POINT)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(3):
+            reset_counts()
+            t = time.perf_counter()
+            fn(model, sv, pyr, img, DAM_POINT)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        timed[name] = {"ms": ms, "median_ms": float(np.median(ms)), "launches": read_counts()}
+    a_fwd = timed["dam"]["launches"]["sparse_conv_gather_gemm"]
+    a_dx = timed["saliency"]["launches"]["sparse_conv_gather_gemm"] - a_fwd
+    dx = hold_conv_list(pyr, DAM_DX_CONVS, gen, "dam", backward=True)
+
+    # card against CPU, f32, on a 6 000-point part of the fragment
+    small = points[np.random.RandomState(9).choice(len(points), SMALL_FRAGMENT_POINTS,
+                                                   replace=False)]
+    cfg32 = cfg.replace(compute_dtype="float32")
+    maps = {}
+    for dev in ("cuda", "cpu"):
+        m32 = build_model_from_config(cfg32, eval_fast=True)
+        m32.load_state_dict(model.state_dict())
+        m32 = m32.to(dev).eval()
+        args = cli.dam_inputs(cfg32, small, image, torch.device(dev))[:3]
+        maps[dev] = (descriptor_activation_map(m32, *args, DAM_POINT).cpu(),
+                     image_activation_map(m32, *args, DAM_POINT).cpu())
+    dam_err = float((maps["cuda"][0] - maps["cpu"][0]).abs().max())
+    sal_err = float((maps["cuda"][1] - maps["cpu"][1]).abs().max())
+    dam_scale, sal_scale = float(maps["cpu"][0].max()), float(maps["cpu"][1].max())
+
+    ply = read_ply(out_ply)
+    overlay = load_image(out_png)
+    emit({"phase": "dam", "point": DAM_POINT, "voxels": int(sv.num_valid),
+          "cli_seconds": cli_s, "cli_launches": cli_launches,
+          "dam_ms": timed["dam"]["median_ms"], "saliency_ms": timed["saliency"]["median_ms"],
+          "timed": timed, "a_forward_launches": a_fwd, "a_dx_launches": a_dx,
+          "a_dx_held": dx,
+          "small_f32": {"points": SMALL_FRAGMENT_POINTS, "dam_max_abs_err": dam_err,
+                        "dam_scale": dam_scale, "dam_tol": DAM_REL * dam_scale,
+                        "saliency_max_abs_err": sal_err, "saliency_scale": sal_scale,
+                        "saliency_tol": SALIENCY_REL * sal_scale},
+          "ply_points": len(ply["points"]), "ply_has_colors": "colors" in ply,
+          "overlay_shape": list(overlay.shape), "cli_output": text.strip().splitlines()})
+    want_cli = {"sparse_conv_gather_gemm": 49, "flash_nn": 0, "sorted_compact": 1,
+                "word_match": 1 if cfg.use_grid_maps else 0,
+                "sparse_conv_gather_gemm.tc": 49, "sparse_conv_gather_gemm.scalar": 0}
+    if cli_launches != want_cli or a_fwd != 20 or a_dx != len(DAM_DX_CONVS):
+        raise AssertionError(f"dam: launches {cli_launches} (want {want_cli}), A forward "
+                             f"{a_fwd}, A dX {a_dx}")
+    if not (dam_err <= DAM_REL * dam_scale and sal_err <= SALIENCY_REL * sal_scale
+            and dam_scale > 0 and sal_scale > 0):
+        raise AssertionError(f"dam: card vs CPU, DAM err {dam_err} (max {dam_scale}), "
+                             f"saliency err {sal_err} (max {sal_scale})")
+    if len(ply["points"]) != int(sv.num_valid) or "colors" not in ply or \
+            overlay.shape != (120, 160, 3):
+        raise AssertionError(f"dam: the PLY has {len(ply['points'])} points (want "
+                             f"{int(sv.num_valid)}), the overlay {overlay.shape}")
+    return cli_launches
+
+
+def phase_visualize(root, ckpt, scene_dir):
+    """``cli visualize`` on benchmark fragments 0 and 1 with seeded images:
+    launches per fragment (C 1, D 1, A 20) and per pair (B 2), the fitness
+    and the pose; the two views must hold both clouds, coloured, and the
+    pose must be finite and rigid."""
+    from imfnet_tpu_torch.geom.image import save_image
+    from imfnet_tpu_torch.geom.ply import read_ply
+
+    argv = ["visualize", "--checkpoint", ckpt, "--out-dir", os.path.join(root, "views")]
+    n_raw = 0
+    for k in (0, 1):
+        png = os.path.join(root, f"view_{k}.png")
+        save_image(png, np.random.RandomState(10 + k).rand(120, 160, 3))
+        ply = os.path.join(scene_dir, f"cloud_bin_{k}.ply")
+        n_raw += len(read_ply(ply)["points"])
+        argv += [f"--ply{k}", ply, f"--image{k}", png]
+    reset_counts()
+    text, seconds = run_cli(argv, text=True)
+    launches = read_counts()
+    fitness = float(text.split("fitness ")[1].split(";")[0])
+    pose = np.array([float(v) for v in re.findall(r"[-+]?\d+\.?\d*(?:e[-+]?\d+)?",
+                                                  text.split("\n", 1)[1])]).reshape(4, 4)
+    views = {v: read_ply(os.path.join(root, "views", v + ".ply")) for v in ("before", "after")}
+    emit({"phase": "visualize", "seconds": seconds, "fitness": fitness, "pose": pose.tolist(),
+          "launches": launches, "launches_per_fragment": {
+              k: launches[k] / 2 for k in ("sparse_conv_gather_gemm", "sorted_compact",
+                                           "word_match")},
+          "flash_nn_per_pair": launches["flash_nn"],
+          "view_points": {v: len(d["points"]) for v, d in views.items()}})
+    want = {"sparse_conv_gather_gemm": 40, "flash_nn": 2, "sorted_compact": 2, "word_match": 2,
+            "sparse_conv_gather_gemm.tc": 40, "sparse_conv_gather_gemm.scalar": 0}
+    if launches != want:
+        raise AssertionError(f"visualize: launches {launches}, want {want}")
+    rigid = np.allclose(pose[:3, :3] @ pose[:3, :3].T, np.eye(3), atol=1e-3)
+    if not (np.isfinite(pose).all() and rigid and np.allclose(pose[3], [0, 0, 0, 1])
+            and 0.0 <= fitness <= 1.0):
+        raise AssertionError(f"visualize: pose {pose}, fitness {fitness}")
+    for v, d in views.items():
+        if len(d["points"]) != n_raw or "colors" not in d:
+            raise AssertionError(f"visualize: {v}.ply has {len(d['points'])} points, want "
+                                 f"{n_raw}, or no colours")
+    return launches
+
+
+def render_room_depth(cam2world, hw=OFFLINE_HW, K=OFFLINE_K):
+    """Depth (z in the camera frame, m) of every pixel looking from inside
+    ROOM at its walls and ROOM_BOXES."""
+    H, W = hw
+    v, u = np.mgrid[0:H, 0:W].astype(np.float64)
+    rays = np.stack([(u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1], np.ones_like(u)],
+                    -1).reshape(-1, 3)
+    d = rays @ cam2world[:3, :3].T
+    o = cam2world[:3, 3]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv = np.where(d != 0, 1.0 / d, np.inf)
+        t = np.where(d > 0, (ROOM[1] - o) * inv, (ROOM[0] - o) * inv)
+        t = np.where(d != 0, t, np.inf).min(axis=1)          # the wall the ray leaves by
+        for lo, hi in ROOM_BOXES:
+            t1, t2 = (lo - o) * inv, (hi - o) * inv
+            near = np.nan_to_num(np.minimum(t1, t2), nan=-np.inf).max(axis=1)
+            far = np.nan_to_num(np.maximum(t1, t2), nan=np.inf).min(axis=1)
+            hit = (near < far) & (near > 0) & (near < t)
+            t = np.where(hit, near, t)
+    return t.reshape(H, W).astype(np.float32)
+
+
+def write_room_sequence(root, n_frames=OFFLINE_FRAMES):
+    """A 3DMatch-style sequence: ``n_frames`` 480 x 640 uint16 depth PNGs (mm)
+    of the room, seen by a camera that sways and turns through it,
+    camera-to-world poses and camera-intrinsics.txt. Returns the scene dir."""
+    from PIL import Image
+
+    scene = os.path.join(root, "room")
+    seq = os.path.join(scene, "seq-01")
+    os.makedirs(seq)
+    np.savetxt(os.path.join(scene, "camera-intrinsics.txt"), OFFLINE_K)
+    for i in range(n_frames):
+        a = 2 * np.pi * i / n_frames
+        pose = np.eye(4)
+        pose[:3, :3] = axis_angle_rotation(np.array([0.0, 1.0, 0.0]), 0.5 * np.sin(a)) @ \
+            axis_angle_rotation(np.array([1.0, 0.0, 0.0]), 0.1 * np.cos(a))
+        pose[:3, 3] = [0.4 * np.sin(a), 0.1 * np.cos(2 * a), -0.4 + 0.3 * np.cos(a)]
+        depth = render_room_depth(pose)
+        Image.fromarray(np.round(depth * 1000).astype(np.uint16)).save(
+            os.path.join(seq, f"frame-{i:06d}.depth.png"))
+        np.savetxt(os.path.join(seq, f"frame-{i:06d}.pose.txt"), pose)
+    return scene
+
+
+def nearest_gap(a, b):
+    """The largest distance from a point of either cloud to the other."""
+    from scipy.spatial import cKDTree
+
+    return max(float(cKDTree(b).query(a)[0].max()), float(cKDTree(a).query(b)[0].max()))
+
+
+def phase_offline(root, gen):
+    """fuse-fragments on OFFLINE_FRAMES frames at 256^3 (ms a frame), the
+    card's fragment 0 against the CPU's (point count and nearest-point gap);
+    compute-overlap on the six benchmark fragments in the world's frame
+    (kernel B at up to 204 000^2 x 3: one launch a pair, held to its plain
+    version as in the kitti phase, timed beside its bound and cdist + min),
+    its ratios against an f64 KD-tree; compute-radius's seconds."""
+    from imfnet_tpu_torch.data.offline import fuse_fragment_frames
+    from imfnet_tpu_torch.geom.ply import read_ply
+    from imfnet_tpu_torch.utils.native import have_native
+    from scipy.spatial import cKDTree
+
+    t = time.perf_counter()
+    scene = write_room_sequence(root)
+    write_s = time.perf_counter() - t
+    frags = os.path.join(root, "fused")
+    reset_counts()
+    fused, fuse_s = run_cli(["fuse-fragments", "--scene-dir", scene, "--out-dir", frags])
+    fuse_launches = read_counts()
+    card = read_ply(fused["fragments"][0])["points"]
+    seq = os.path.join(scene, "seq-01")
+    depths = sorted(os.path.join(seq, f) for f in os.listdir(seq)
+                    if f.endswith(".depth.png"))[:50]
+    t = time.perf_counter()
+    cpu, _ = fuse_fragment_frames(depths, [d[:-len(".depth.png")] + ".pose.txt" for d in depths],
+                                  OFFLINE_K, device="cpu")
+    cpu_s = time.perf_counter() - t
+    cpu = cpu.astype(np.float32)
+    voxel = 6.0 / 256
+    gap = nearest_gap(card, cpu)
+    count_rel = abs(len(card) - len(cpu)) / len(cpu)
+
+    pcloud, _, _ = write_benchmark_scene(os.path.join(root, "world"), world_frame=True)
+    world_dir = os.path.join(pcloud, BENCH_SCENE, "seq-01")
+    reset_counts()
+    overlap, overlap_s = run_cli(["compute-overlap", "--fragments-dir", world_dir,
+                                  "--out-dir", os.path.join(root, "overlap")])
+    overlap_launches = read_counts()
+    pts = [read_ply(os.path.join(world_dir, f"cloud_bin_{k}.ply"))["points"].astype(np.float32)
+           for k in range(BENCH_FRAGMENTS)]
+    ref = []
+    for i in range(BENCH_FRAGMENTS):
+        tree = cKDTree(pts[i].astype(np.float64))
+        for j in range(i + 2, BENCH_FRAGMENTS):
+            dd, _ = tree.query(pts[j].astype(np.float64))
+            ratio = float((dd <= 0.075).sum()) / max(len(pts[i]), len(pts[j]))
+            if ratio >= 0.3:
+                ref.append([f"cloud_bin_{i}", f"cloud_bin_{j}", ratio])
+    ratio_err = max((abs(a[2] - b[2]) for a, b in zip(overlap["pairs"], ref)), default=0.0)
+    q, r = torch.from_numpy(pts[2]).cuda(), torch.from_numpy(pts[0]).cuda()
+    b_entry = kernel_b_entry("overlap 204 000^2 x 3", q, r,
+                             torch.ones(len(r), dtype=torch.bool, device="cuda"), "offline")
+
+    radius, radius_s = run_cli(["compute-radius", "--fragments-dir", frags])
+    radii = [np.load(f) for f in radius["radius_files"]]
+    emit({"phase": "offline", "have_native": have_native(),
+          "voxel_dedup": "native" if have_native() else "numpy fallback",
+          "frames": OFFLINE_FRAMES, "hw": list(OFFLINE_HW), "write_seconds": write_s,
+          "fuse_seconds": fuse_s, "fuse_ms_per_frame": fuse_s * 1e3 / OFFLINE_FRAMES,
+          "fragments": len(fused["fragments"]), "fuse_launches": fuse_launches,
+          "fragment0_points": {"card": len(card), "cpu": len(cpu)},
+          "cpu_fuse_seconds_fragment0": cpu_s, "count_rel": count_rel,
+          "count_rel_tol": FUSE_COUNT_REL, "nearest_gap_m": gap,
+          "nearest_gap_tol_m": FUSE_DIST_VOXELS * voxel,
+          "overlap_seconds": overlap_s, "overlap_pairs": overlap["pairs"],
+          "overlap_kdtree_pairs": ref, "overlap_ratio_max_err": ratio_err,
+          "overlap_launches": overlap_launches,
+          "radius_seconds": radius_s, "radius_points": [len(x) for x in radii],
+          "radius_median": [float(np.median(x)) for x in radii]})
+    if len(fused["fragments"]) != 2 or count_rel > FUSE_COUNT_REL or \
+            gap > FUSE_DIST_VOXELS * voxel or len(cpu) < 10_000:
+        raise AssertionError(f"offline: {len(fused['fragments'])} fragments; card vs CPU "
+                             f"{len(card)} / {len(cpu)} points, gap {gap} m")
+    n_pairs = BENCH_FRAGMENTS * (BENCH_FRAGMENTS - 1) // 2 - (BENCH_FRAGMENTS - 1)
+    if overlap_launches["flash_nn"] != n_pairs or \
+            [p[:2] for p in overlap["pairs"]] != [p[:2] for p in ref] or \
+            ratio_err > OVERLAP_RATIO_ATOL or not overlap["pairs"]:
+        raise AssertionError(f"offline: overlap pairs {overlap['pairs']} against the KD-tree's "
+                             f"{ref}, kernel B launches {overlap_launches['flash_nn']}")
+    if len(radii) != 2 or not all(np.isfinite(x).all() and (x > 0).mean() > 0.9 for x in radii):
+        raise AssertionError("offline: radii missing, not finite or mostly zero")
+    return fuse_launches, overlap_launches, b_entry
+
+
+def phase_slice8(gen, kernels):
+    """zoo, convert, dam, visualize and offline on one benchmark scene;
+    each kernel's launches on these paths go into its ``kernels`` entry."""
+    with tempfile.TemporaryDirectory(prefix="slice8_") as root:
+        pcloud, _, _ = write_benchmark_scene(root)
+        scene_dir = os.path.join(pcloud, BENCH_SCENE, "seq-01")
+        frag0 = os.path.join(scene_dir, "cloud_bin_0.ply")
+        zoo = phase_zoo(frag0, gen)
+        ckpt, convert_launches = phase_convert(root, scene_dir)
+        dam_launches = phase_dam(root, ckpt, frag0, gen)
+        vis_launches = phase_visualize(root, ckpt, scene_dir)
+        fuse_launches, overlap_launches, overlap_nn = phase_offline(root, gen)
+    for kern in kernels:
+        name = kern["name"]
+        kern.update({"zoo_launches_per_fragment": zoo["fragment"][name],
+                     "zoo_launches_per_step": zoo["step"][name],
+                     "convert_generate_desc_launches": convert_launches[name],
+                     "dam_launches": dam_launches[name],
+                     "visualize_launches": vis_launches[name],
+                     "fuse_launches": fuse_launches[name],
+                     "overlap_launches": overlap_launches[name]})
+        if name == "flash_nn":
+            kern.update({f"overlap_{k}": overlap_nn[k]
+                         for k in ("n", "m", "d", "max_abs_err", "ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")})
+        if name == "sparse_conv_gather_gemm":
+            conv1 = next(c for c in zoo["convs"] if c["conv"] == "conv1")
+            kern.update({"zoo_max_abs_err": max(c["max_abs_err"] for c in zoo["convs"]),
+                         "zoo_conv1_ms": conv1["ms"], "zoo_conv1_plain_ms": conv1["plain_ms"]})
+
+
 def forward_pair_eval(model, batch, cfg):
     with torch.no_grad():
         return forward_pair(model, batch, train=False, config=cfg)
@@ -2232,6 +2824,9 @@ def main():
     b.update({f"{pre}_{k}": e[k] for pre, e in (("icp", icp_nn), ("kitti", kitti_nn))
               for k in ("n", "m", "d", "max_abs_err", "ms", "plain_ms", "library_ms",
                         "bound_ms", "bound_by")})
+
+    # ---- the zoo, the converter, DAM, the visualizer, the offline tools ----
+    phase_slice8(gen, kernels)
 
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

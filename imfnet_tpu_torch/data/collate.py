@@ -13,6 +13,7 @@ import torch
 from imfnet_tpu_torch.sparse.coords import PAD_COORD
 from imfnet_tpu_torch.train.step import PairBatch
 from imfnet_tpu_torch.utils.device import resolve_device
+from imfnet_tpu_torch.utils.native import voxel_dedup
 
 
 @dataclass
@@ -37,15 +38,10 @@ class VoxelizedPair:
 def voxelize_np(xyz: np.ndarray, voxel_size: float):
     """First-occurrence voxel dedup: (coords int32[k,3], sel int32[k]) with
     rows in order of first occurrence (`ME.utils.sparse_quantize`
-    semantics). Cells are ``floor(xyz * (1/voxel))`` in float32, the
-    arithmetic of the reference's native dedup (native/host_ops.cpp)."""
-    inv = np.float32(1.0) / np.float32(voxel_size)
-    v = np.floor(np.asarray(xyz, np.float32) * inv).astype(np.int32)
-    if len(v) == 0:
-        return v.reshape(0, 3), np.zeros((0,), np.int32)
-    _, sel = np.unique(v, axis=0, return_index=True)
-    sel = np.sort(sel)
-    return v[sel], sel.astype(np.int32)
+    semantics, `lib/data_loaders.py:290-295`): the native hash dedup
+    (``utils.native.voxel_dedup``, cells ``floor(xyz * (1/voxel))`` in f32),
+    or its numpy fallback where the library did not build."""
+    return voxel_dedup(xyz, voxel_size)
 
 
 def _pack_side(coords_list, xyz_list, feats_list, n_pad: int):

@@ -80,14 +80,16 @@ def make_pyramid_fn(config: Config, n_pad: int, num_batches: int = 2,
       ``config.grid_extent``) for ``num_batches`` batches, as the JAX
       package's ``use_grid``/``extent`` do.
     The dense "packed" grid builder is the banded maps' oracle and stays a
-    ``build_pyramid_grid`` option only."""
+    ``build_pyramid_grid`` option only. The pyramid has one level per entry
+    of ``config.level_capacity_divisors`` (4 by default; SimpleNet3 needs
+    5), where the JAX package always builds 4."""
     if map_impl not in MAP_IMPLS:
         raise ValueError(f"make_pyramid_fn: map_impl must be one of {MAP_IMPLS}, "
                          f"got {map_impl!r}")
     caps = level_capacities(n_pad, tuple(config.level_capacity_divisors))
     if map_impl == "search":
         def fn(coords, n):
-            return build_pyramid(coords, n,
+            return build_pyramid(coords, n, num_levels=len(caps),
                                  conv1_kernel_size=config.conv1_kernel_size,
                                  level_capacity=caps)
         return fn
@@ -96,7 +98,7 @@ def make_pyramid_fn(config: Config, n_pad: int, num_batches: int = 2,
                     num_batches=num_batches)
 
     def fn(coords, n):
-        return build_pyramid_grid(coords, n, spec=spec,
+        return build_pyramid_grid(coords, n, spec=spec, num_levels=len(caps),
                                   conv1_kernel_size=config.conv1_kernel_size,
                                   level_capacity=caps, map_impl=map_impl)
 

@@ -43,6 +43,26 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _subcommands(parser_main):
+    """The subcommand names of a CLI's parser, read by letting its
+    ``--help`` exit."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), pytest.raises(SystemExit):
+        parser_main(["--help"])
+    text = buf.getvalue()
+    return set(text[text.index("{") + 1:text.index("}")].split(","))
+
+
+def test_the_cli_has_the_jax_cli_subcommands():
+    names = _subcommands(cli.main)
+    assert names == _subcommands(jcli.main) and len(names) == 12
+    assert {"convert-imfnet", "dam", "visualize", "fuse-fragments", "compute-overlap",
+            "compute-radius"} <= names
+
+
 def _train_losses(run_dir):
     with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         recs = [json.loads(ln) for ln in f]
