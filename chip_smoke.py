@@ -49,6 +49,11 @@ Phases, each printed as one JSON line:
             torch.matmul of the pre-gathered [n_out, 27*cin] bf16 matrix by
             [27*cin, cout], a yardstick of the dense work only (the port
             never calls it)
+  roofline  sparse/roofline.py on the pipeline's pyramid: its bytes of the
+            20 kernel-A convs, conv by conv through the maps, equal the
+            kernel phase's (whose bound now comes from the same
+            conv_traffic_bytes), and the forward's and kernel A's bytes over
+            their ms as a share of the card's 3.35 TB/s
   reference the chain on a small pair, on the card vs on the CPU (the
             plain versions, which the CPU tests hold to the JAX package),
             in f32 for the default and the packed-grid path (equal tables,
@@ -57,6 +62,12 @@ Phases, each printed as one JSON line:
             tensor-core variant (equal tables, descriptors within the bf16
             tolerance)
   paths     pair latency of both paths, interleaved on the same host
+  builders  every pyramid builder ("search", "packed", "banded", "ywide",
+            "transpose") on the bench-scale pair through PairRegistrar with
+            kernel C's quantize: tables bit for bit equal to the search
+            builder's, launches per pair (A 20, B 2, C 1, D 1 for "banded"
+            alone), and, interleaved round by round, pyramid ms on one
+            quantized pair and pair latency
   profile   torch.profiler over three pairs: device-busy ms per pair, the
             device's idle share against the unprofiled wall time, kernel
             launches per pair, the top kernels by device time, and the
@@ -82,6 +93,24 @@ Phases, each printed as one JSON line:
             per pair of the batch, 2 000 sampled queries of each pair against
             an f64 brute force, kernel launches per step asserted (A 82: 80
             tensor-core + 2 scalar; B 2; C and D 0), peak memory
+  dp        data parallelism at the train phase's width (bench_config, the
+            search builder, synthetic_batch(RandomState(0) and (1), 2 pairs,
+            200k points, n_pad 65 536)). One rank over NCCL, in this
+            process after the train phase: 3 DP steps from a copy of one
+            start bit-equal to 3 plain steps (parameters, buffers, momentum,
+            losses), both timed interleaved, one more DP step under the
+            profiler for the all-reduce's kernels and bytes. Two ranks
+            sharing the card over gloo (make_mesh(devices=["cuda:0",
+            "cuda:0"])), in the one pair of new processes of the last
+            phases: 3 steps against make_emulated_dp_step on the same
+            batches and draws (within 1e-5 of each tensor's largest entry;
+            the maximum printed), both ranks bit-equal, A 82, B 2 a rank and
+            step; batches/s of the two ranks against one. Then
+            Trainer.train() on the two ranks (2 epochs of 2 steps, 50 000
+            points a fragment, one validation pair an epoch) against 1
+            epoch, a checkpoint and a resume: bit-equal on each rank; per
+            rank and training step A 82, B 2, D 2, per validation step A 42,
+            B 1, D 2. The line comes near the end, with sharded's
   train_profile  torch.profiler over three steps: device-busy ms per step,
             idle share, launches per step, each csrc/ kernel in place
   trainer   Trainer.train() at full width (bench_config: ResUNetBN2C
@@ -163,19 +192,33 @@ Phases, each printed as one JSON line:
   visualize cli visualize on fragments 0 and 1 with seeded PNGs: launches
             (C 1, D 1, A 20 a fragment, B 2 a pair, asserted), fitness and
             pose (finite, rigid), both views holding both clouds, coloured
-  offline   a 3DMatch-style sequence of 100 480 x 640 depth PNGs of a
-            synthetic room, cli fuse-fragments at 256^3 (2 fragments, ms a
-            frame), fragment 0 fused again on the CPU (point count within
-            0.5 %, every point within 2 voxels of the other cloud), cli
+  offline   a 3DMatch-style sequence of 50 480 x 640 depth PNGs of a
+            synthetic room, cli fuse-fragments at 256^3 (2 fragments of 25
+            frames, ms a frame), the first 8 frames fused on the card and on
+            the CPU (point count within 0.5 %, every point within 2 voxels
+            of the other cloud), cli
             compute-overlap on the six benchmark fragments in the world's
             frame (kernel B, one launch a pair at up to 204 000^2 x 3, held
             as in the kitti phase and timed beside its bound, its plain
             version and cdist + min; kept pairs and ratios against an f64
             KD-tree within 1e-3), cli compute-radius's seconds, and which
             voxel dedup ran (the native library or the numpy fallback)
-Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  sharded   generate-desc on the benchmark scene (written anew) and
+            eval-kitti on the KITTI scans (written anew, ICP cached first)
+            through the CLI's rank functions, on two ranks sharing the card
+            over gloo (the dp phase's processes) against rank 0 alone in
+            the same processes (the serial path): every .npz equal (xyz exact,
+            descriptors within 1e-5), the KITTI summaries equal, launches
+            adding up to C 1 + D 1 + A 20 a grid fragment, A 20 the exact
+            one, A 40 + B 2 + D 2 a pair; fragments/s and pairs/s of both
+            from the slowest rank's seconds of the whole call, a second
+            call in the same process (the first holds the warm-up), and
+            generate-desc's "All Time" ratio beside them
+Then one line {"kernels": [...]} (each kernel's launches on every path,
+these included) and, last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; so does a machine without CUDA.
 """
+import argparse
 import glob
 import json
 import os
@@ -202,6 +245,8 @@ from imfnet_tpu_torch.geom.transforms import apply_transform_np, axis_angle_rota
 from imfnet_tpu_torch.match.nn_kernel import (MAX_SPLIT, NN_TILES, NNPlan, flash_nn,
                                                 nn_plain, nn_plan, run_plan)
 from imfnet_tpu_torch.models import load_model
+from imfnet_tpu_torch.parallel import dp
+from imfnet_tpu_torch.parallel.mesh import close_mesh, make_mesh, mesh_backend, spawn_ranks
 from imfnet_tpu_torch.pipeline import N_PAD_MAX, PairRegistrar, bench_config
 from imfnet_tpu_torch.sparse.conv_kernel import (TC_TILES, conv_plan, gather_gemm,
                                                  gather_gemm_plain)
@@ -211,19 +256,21 @@ from imfnet_tpu_torch.sparse.kernel_map import coarse_levels_fit
 from imfnet_tpu_torch.sparse.coords import quantize, row_mask
 from imfnet_tpu_torch.sparse.ops import weight_grad
 from imfnet_tpu_torch.sparse.quant_kernel import sorted_compact, sorted_compact_plain
+# the H100's peaks (NVIDIA data sheet, used for bounds only) and kernel A's
+# traffic model
+from imfnet_tpu_torch.sparse.roofline import (PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_F32_FLOPS,
+                                              conv_traffic_bytes, forward_convs,
+                                              forward_hbm_bytes)
 from imfnet_tpu_torch.sparse.word_map_kernel import (empty_launch, word_match_many,
                                                      word_match_plain)
 from imfnet_tpu_torch.train.checkpoint import load_model_from_checkpoint, save_checkpoint
 from imfnet_tpu_torch.train.state import create_train_state
-from imfnet_tpu_torch.train.step import (compute_correspondences, forward_pair,
-                                         level_capacities, make_pyramid_fn, make_train_step)
+from imfnet_tpu_torch.train.step import (PairBatch, compute_correspondences, forward_pair,
+                                         level_capacities, make_loss_fn, make_pyramid_fn,
+                                         make_train_step, mean_step_over_ranks)
 from imfnet_tpu_torch.train.trainer import Trainer, batch_to_device, build_model_from_config
 from imfnet_tpu_torch.utils import cuda_build
 
-# H100 SXM published dense peaks (NVIDIA data sheet), used for bounds only
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 
 # The 20 kernel-A convs of one ResUNetIMF forward: (name, level, map, cin,
 # cout). The map of level i gathers from level i (k3_same), i-1 (down) or
@@ -319,7 +366,13 @@ TRAIN_REF_BUFFER_REL = 1e-4   # running statistics, of each tensor's largest ent
 SEARCH_D2_ATOL = 2e-6         # f32 d2 of coordinates of a few metres against f64
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also gives the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -507,12 +560,12 @@ def phase_kernel_a(pyr, gen, backward=False):
         idx = torch.where(nbr >= 0, nbr, n_in).long()
         dense_a = torch.cat([x, x.new_zeros((1, cin))])[idx].reshape(n_out, -1)
         dense_b = w.reshape(-1, cout)
-        # bytes: the map and the output once; of x only the rows the map
-        # names (each level's capacity padding is never read), of W only
-        # the offsets with a live entry
+        # bytes (sparse/roofline.py): the map and the output once; of x only
+        # the rows the map names (each level's capacity padding is never
+        # read), of W only the offsets with a live entry
         ops_ms = 2.0 * nnz * cin * cout / PEAK_BF16_FLOPS * 1e3
-        bytes_ms = (rows_read * cin * 2 + nbr.numel() * 4
-                    + offsets_read * cin * cout * 2 + n_out * cout * 4) / PEAK_BYTES * 1e3
+        nbytes = conv_traffic_bytes(n_out, n_in, nbr.shape[1], cin, cout, nbr=nbr)
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
         entry = {
             "conv": name, "level": level, "map": which, "cin": cin, "cout": cout,
             "n_in": n_in, "n_out": n_out, "nnz": nnz, "x_rows_read": rows_read,
@@ -527,7 +580,8 @@ def phase_kernel_a(pyr, gen, backward=False):
             "eager_ms": cuda_ms(lambda: gather_gemm(x, nbr, w), 20),
             "plain_ms": graph_ms(lambda: gather_gemm_plain(x, nbr, w), 5),
             "dense_gemm_ms": graph_ms(lambda: torch.matmul(dense_a, dense_b), 5),
-            "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
         }
         del dense_a
@@ -552,7 +606,7 @@ def phase_kernel_a(pyr, gen, backward=False):
         "max_abs_err": max(e["max_abs_err"] for e in shapes),
         "ms": total("ms"), "eager_ms": total("eager_ms"), "plain_ms": total("plain_ms"),
         "dense_gemm_ms": total("dense_gemm_ms"),
-        "bound_ms": total("bound_ms"),
+        "bytes": total("bytes"), "bound_ms": total("bound_ms"),
         "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
         "library_ms": None,
         "shapes_not_faster_than_plain": slower,
@@ -982,7 +1036,7 @@ def phase_pipeline(reg, pair, phase="pipeline", per_pair=DEFAULT_LAUNCHES,
           "metrics": {k: float(v) for k, v in out.items() if v.numel() == 1},
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
           **same})
-    return launches, seconds / n_pairs, q, pyr, feats
+    return launches, seconds / n_pairs, q, pyr, feats, stages
 
 
 def phase_reference(path="default", compute_dtype="float32", **impls):
@@ -1082,7 +1136,9 @@ def profile_units(run, wall_ms_per_pair, phase, unit, n_pairs):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity alone: every number below reads the device's kernels,
+    # and a trace of the host's operators too costs seconds to sort
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n_pairs):
             run()
         torch.cuda.synchronize()
@@ -2137,7 +2193,9 @@ ZOO_STEPS = 3
 DAM_DX_CONVS = MAIN_PATH_CONVS[11:]
 DAM_POINT = 780
 DAM_REL, SALIENCY_REL = 1e-4, 1e-3      # of each map's largest value
-OFFLINE_FRAMES, OFFLINE_HW = 100, (480, 640)
+OFFLINE_FRAMES, OFFLINE_HW = 50, (480, 640)
+OFFLINE_FRAMES_PER_FRAGMENT = 25         # two fragments
+OFFLINE_CPU_FRAMES = 8                   # fused on the CPU and on the card, compared
 OFFLINE_K = np.array([[585.0, 0.0, 320.0], [0.0, 585.0, 240.0], [0.0, 0.0, 1.0]])
 # the room's inside, and two boxes on its floor (m; y points down, as the camera's)
 ROOM = (np.array([-3.0, -1.6, -2.5]), np.array([3.0, 1.4, 3.5]))
@@ -2560,8 +2618,9 @@ def nearest_gap(a, b):
 
 
 def phase_offline(root, gen):
-    """fuse-fragments on OFFLINE_FRAMES frames at 256^3 (ms a frame), the
-    card's fragment 0 against the CPU's (point count and nearest-point gap);
+    """fuse-fragments on OFFLINE_FRAMES frames at 256^3 (ms a frame), two
+    fragments; the first OFFLINE_CPU_FRAMES frames fused on the card against
+    the CPU (point count and nearest-point gap);
     compute-overlap on the six benchmark fragments in the world's frame
     (kernel B at up to 204 000^2 x 3: one launch a pair, held to its plain
     version as in the kitti phase, timed beside its bound and cdist + min),
@@ -2576,17 +2635,18 @@ def phase_offline(root, gen):
     write_s = time.perf_counter() - t
     frags = os.path.join(root, "fused")
     reset_counts()
-    fused, fuse_s = run_cli(["fuse-fragments", "--scene-dir", scene, "--out-dir", frags])
+    fused, fuse_s = run_cli(["fuse-fragments", "--scene-dir", scene, "--out-dir", frags,
+                             "--frames-per-fragment", str(OFFLINE_FRAMES_PER_FRAGMENT)])
     fuse_launches = read_counts()
-    card = read_ply(fused["fragments"][0])["points"]
     seq = os.path.join(scene, "seq-01")
     depths = sorted(os.path.join(seq, f) for f in os.listdir(seq)
-                    if f.endswith(".depth.png"))[:50]
+                    if f.endswith(".depth.png"))[:OFFLINE_CPU_FRAMES]
+    poses = [d[:-len(".depth.png")] + ".pose.txt" for d in depths]
+    card, _ = fuse_fragment_frames(depths, poses, OFFLINE_K, device="cuda")
     t = time.perf_counter()
-    cpu, _ = fuse_fragment_frames(depths, [d[:-len(".depth.png")] + ".pose.txt" for d in depths],
-                                  OFFLINE_K, device="cpu")
+    cpu, _ = fuse_fragment_frames(depths, poses, OFFLINE_K, device="cpu")
     cpu_s = time.perf_counter() - t
-    cpu = cpu.astype(np.float32)
+    card, cpu = card.astype(np.float32), cpu.astype(np.float32)
     voxel = 6.0 / 256
     gap = nearest_gap(card, cpu)
     count_rel = abs(len(card) - len(cpu)) / len(cpu)
@@ -2619,8 +2679,8 @@ def phase_offline(root, gen):
           "frames": OFFLINE_FRAMES, "hw": list(OFFLINE_HW), "write_seconds": write_s,
           "fuse_seconds": fuse_s, "fuse_ms_per_frame": fuse_s * 1e3 / OFFLINE_FRAMES,
           "fragments": len(fused["fragments"]), "fuse_launches": fuse_launches,
-          "fragment0_points": {"card": len(card), "cpu": len(cpu)},
-          "cpu_fuse_seconds_fragment0": cpu_s, "count_rel": count_rel,
+          "cpu_frames": OFFLINE_CPU_FRAMES, "cpu_frames_points": {"card": len(card), "cpu": len(cpu)},
+          "cpu_fuse_seconds": cpu_s, "count_rel": count_rel,
           "count_rel_tol": FUSE_COUNT_REL, "nearest_gap_m": gap,
           "nearest_gap_tol_m": FUSE_DIST_VOXELS * voxel,
           "overlap_seconds": overlap_s, "overlap_pairs": overlap["pairs"],
@@ -2716,6 +2776,415 @@ def kernel_b_entry(case, q, r, v, phase, chunk=8192):
     return entry
 
 
+# ---- data parallelism, sharded evaluation, the grid builders ------------
+
+DP_STEPS = 3                  # steps of each DP comparison; the first is a warm-up for times
+# two ranks on one card against the emulation in this process: the largest
+# |rank - emulation| of a tensor over its largest entry. Both run the same
+# kernels on the same card; the ranks' sums over ranks run on the host (gloo)
+DP_EMUL_REL = 1e-5
+SHARED_CARD = ["cuda:0", "cuda:0"]   # two ranks on the one card, over gloo
+# the DP trainer run: 4 batches of 2 pairs, 2 steps a rank an epoch, one
+# validation pair an epoch; 50 000 points a fragment keep the loader short
+DP_TRAINER_RUN = dict(synthetic_length=8, synthetic_n_points=50_000, val_max_iter=1)
+BUILDERS = ("search", "packed", "banded", "ywide", "transpose")
+BUILDER_ROUNDS = 5
+
+
+def arrays_gap(got, want, where):
+    """(bit-equal, the largest |got - want| of a tensor over its largest
+    |want|) over the module tensors and momentum of two train states."""
+    equal, worst = True, 0.0
+    for part in ("model", "momentum"):
+        if got[part].keys() != want[part].keys():
+            raise AssertionError(f"{where}: {part} holds other tensors")
+        for k, w in want[part].items():
+            g = got[part][k]
+            if torch.equal(g, w):
+                continue
+            equal = False
+            if not w.is_floating_point():
+                worst = float("inf")
+                continue
+            scale = max(float(w.double().abs().max()), 1e-12)
+            worst = max(worst, float((g.double() - w.double()).abs().max()) / scale)
+    return equal, worst
+
+
+def launches_per(counts, steps):
+    return {k: v / max(steps, 1) for k, v in counts.items() if k != "steps"}
+
+
+def phase_dp_one_rank(cfg, batch):
+    """Data parallelism at the Train step cell's width (``bench_config``, the
+    search builder), in this process. One rank over NCCL: DP_STEPS steps
+    from a copy of one start equal DP_STEPS plain steps bit for bit
+    (parameters, buffers, momentum), both timed, interleaved; one more DP
+    step under the profiler gives the all-reduce's kernels. Returns what
+    ``phase_ranks`` needs for the two ranks: this part's readings, the
+    start, the ranks' batches (host copies: no CUDA tensor crosses a
+    process) and the plain step's ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch1 = synthetic_batch(np.random.RandomState(1), batch_size=TRAIN_BATCH,
+                             n_points=200_000, n_pad=TRAIN_N_PAD,
+                             image_hw=(cfg.image_H, cfg.image_W))
+    start = {k: v.detach().clone() for k, v in train_model(cfg, "cpu").state_dict().items()}
+
+    # ---- one rank over NCCL against the plain step, interleaved
+    mesh = make_mesh(devices=["cuda:0"])
+    if mesh.backend != "nccl" or mesh.world_size != 1:
+        raise AssertionError(f"dp: one rank on its own card is not NCCL: {mesh}")
+    try:
+        runs = {}
+        for name, m in (("plain", None), ("dp", mesh)):
+            model = train_model(cfg, "cuda")
+            model.load_state_dict(start)
+            runs[name] = {"state": create_train_state(model, cfg, steps_per_epoch=100),
+                          "step": make_train_step(cfg, map_impl="search", mesh=m),
+                          "gen": dp.rank_generator(cfg.seed, 0, "cuda"), "ms": [],
+                          "loss": []}
+        for _ in range(DP_STEPS):
+            for r in runs.values():
+                t = time.perf_counter()
+                r["state"], metrics = r["step"](r["state"], batch, r["gen"])
+                r["loss"].append(float(metrics["loss"]))
+                r["ms"].append((time.perf_counter() - t) * 1e3)
+        one_equal, one_gap = arrays_gap(dp.train_state_arrays(runs["dp"]["state"]),
+                                        dp.train_state_arrays(runs["plain"]["state"]), "dp nccl")
+        if not one_equal or runs["dp"]["loss"] != runs["plain"]["loss"]:
+            raise AssertionError(f"dp: one NCCL rank differs from the plain step: {one_gap}, "
+                                 f"losses {runs['dp']['loss']} / {runs['plain']['loss']}")
+        model = runs["dp"]["state"].model
+        reduced_bytes = 4 * (sum(p.numel() for p in model.parameters())
+                             + sum(b.numel() for b in model.buffers() if b.is_floating_point()))
+        torch.cuda.synchronize()
+        r = runs["dp"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            r["state"], _ = r["step"](r["state"], batch, r["gen"])
+            torch.cuda.synchronize()
+        nccl = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "nccl" in e.key.lower()]
+        nccl_ms = sum(e.device_time_total for e in nccl) / 1e3
+        # the averaging alone (flatten, all-reduce, divide, copy back), on
+        # the gradients of one more backward
+        loss, metrics = make_loss_fn(model, cfg, "search")(batch, r["gen"])
+        loss.backward()
+        average_ms, _ = host_ms(lambda: mean_step_over_ranks(model, metrics, mesh), 5)
+        model.zero_grad(set_to_none=True)
+        plain_ms = float(np.median(runs["plain"]["ms"][1:]))
+        one = {"backend": mesh.backend, "steps": DP_STEPS, "bit_equal": one_equal,
+               "losses": runs["dp"]["loss"],
+               "step_ms": {k: r["ms"] for k, r in runs.items()},
+               "step_ms_median_after_first": {k: float(np.median(r["ms"][1:]))
+                                              for k, r in runs.items()},
+               "all_reduce_bytes": reduced_bytes, "all_reduce_ms": nccl_ms,
+               "average_step_host_ms": average_ms,
+               "all_reduce_kernels": [[e.key[:60], e.count, e.device_time_total / 1e3]
+                                      for e in nccl]}
+    finally:
+        close_mesh()
+    del runs, model, r
+    torch.cuda.empty_cache()
+
+    groups = [[PairBatch(*(None if t is None else t.cpu() for t in b)) for b in (batch, batch1)]
+              ] * DP_STEPS
+    return {"one": one, "start": start, "groups": groups, "plain_ms": plain_ms}
+
+
+def dp_rank_calls(cfg, ctx, out_dir):
+    """The ranks' data-parallel calls: DP_STEPS steps, then the DP
+    trainer's two epochs against one, a checkpoint and a resume."""
+    base = bench_config().replace(
+        batch_size=TRAIN_BATCH, val_batch_size=1, dataset="SyntheticPairDataset",
+        max_points=TRAIN_N_PAD, stat_freq=1, data_parallel=2, **DP_TRAINER_RUN)
+    first = base.replace(out_dir=os.path.join(out_dir, "split"), max_epoch=1)
+    return [(dp.run_dp_steps, (cfg, ctx["start"], ctx["groups"], "search", 100)),
+            (dp.run_trainer, (base.replace(out_dir=os.path.join(out_dir, "whole"), max_epoch=2),
+                              None, True)),
+            (dp.run_trainer, (first, None, False)),
+            (dp.run_trainer, (first.replace(max_epoch=2), None, True, first.out_dir))]
+
+
+def phase_dp(cfg, ctx, ranks, spawn_s, names):
+    """Two ranks sharing the card over gloo, each on its own batch (``ranks``:
+    their ``dp_rank_calls`` results): DP_STEPS steps equal
+    make_emulated_dp_step on the same batches and draws within DP_EMUL_REL,
+    both ranks bit-equal, each launching TRAIN_LAUNCHES a step. Then
+    Trainer.train() (DP_TRAINER_RUN): two epochs against one, a checkpoint
+    and a resume, bit for bit on each rank, each training step
+    TRAINER_STEP_LAUNCHES and validation step TRAINER_VAL_LAUNCHES. Emits
+    the ``dp`` line with ``phase_dp_one_rank``'s readings; returns (launches
+    per rank and step, the trainer's launches per training and validation
+    step)."""
+    one, start, groups, plain_ms = ctx["one"], ctx["start"], ctx["groups"], ctx["plain_ms"]
+    steps = [r[0][0] for r in ranks]
+    whole = [r[1][0] for r in ranks]
+    whole_s = max(r[1][1] for r in ranks)
+    resumed = [r[3][0] for r in ranks]
+    model = train_model(cfg, "cuda")
+    model.load_state_dict(start)
+    state = create_train_state(model, cfg, steps_per_epoch=100)
+    gens = [dp.rank_generator(cfg.seed, d, "cuda") for d in range(2)]
+    emulate = dp.make_emulated_dp_step(cfg, 2, map_impl="search")
+    emul_losses = []
+    for group in groups:
+        state, metrics = emulate(state, [batch_to_device(b, torch.device("cuda"))
+                                         for b in group], gens)
+        emul_losses.append(float(metrics["loss"]))
+    want = dp.train_state_arrays(state)
+    del state, model
+    torch.cuda.empty_cache()
+    ranks_equal, ranks_gap = arrays_gap(steps[1], steps[0], "rank 1 vs rank 0")
+    emul_equal, emul_gap = arrays_gap(steps[0], want, "ranks vs emulation")
+    rank_launches = steps[0]["launches"]
+    two_ms = float(np.median([max(a, b) for a, b in zip(steps[0]["ms"][1:], steps[1]["ms"][1:])]))
+    two = {"backend": mesh_backend(SHARED_CARD), "devices": SHARED_CARD, "steps": DP_STEPS,
+           "ranks_bit_equal": ranks_equal, "emulation_bit_equal": emul_equal,
+           "emulation_max_rel_err": emul_gap, "emulation_tol": DP_EMUL_REL,
+           "losses": [m["loss"] for m in steps[0]["metrics"]], "emulation_losses": emul_losses,
+           "step_ms": [r["ms"] for r in steps], "step_ms_median_after_first": two_ms,
+           "spawn_seconds": spawn_s, "launches_per_rank_step": [r["launches"] for r in steps],
+           "batches_per_s": {"two_ranks": 2 * 1e3 / two_ms, "one_rank_plain": 1e3 / plain_ms},
+           "dp_steps_per_s": {"two_ranks": 1e3 / two_ms}}
+    if not ranks_equal or emul_gap > DP_EMUL_REL or \
+            any(r["launches"] != TRAIN_LAUNCHES for r in steps):
+        raise AssertionError(f"dp: two ranks (equal {ranks_equal}) against the emulation "
+                             f"{emul_gap} > {DP_EMUL_REL}, or launches "
+                             f"{[r['launches'] for r in steps]} != {TRAIN_LAUNCHES}")
+
+    gaps = [arrays_gap(resumed[r], whole[r], f"rank {r}: resumed vs whole") for r in range(2)]
+    wr_equal, _ = arrays_gap(whole[1], whole[0], "trainer rank 1 vs rank 0")
+    train_counts = whole[0]["launches"]["train"]
+    val_counts = whole[0]["launches"]["val"]
+    trainer = {"backend": mesh_backend(SHARED_CARD), "devices": SHARED_CARD,
+               "config": {**DP_TRAINER_RUN, "max_epoch": 2},
+               "steps": [r["step"] for r in whole], "seconds_whole": whole_s,
+               "resume_bit_equal": [g[0] for g in gaps],
+               "resume_max_rel_err": [g[1] for g in gaps], "ranks_bit_equal": wr_equal,
+               "launches_per_train_step": [launches_per(r["launches"]["train"],
+                                                        r["launches"]["train"]["steps"])
+                                           for r in whole],
+               "launches_per_val_step": [launches_per(r["launches"]["val"],
+                                                      r["launches"]["val"]["steps"])
+                                         for r in whole],
+               "split_run_files": names}
+    emit({"phase": "dp", "one_rank": one, "two_ranks": two, "trainer": trainer})
+    if not all(g[0] for g in gaps) or not wr_equal or any(
+            launches_per(r["launches"]["train"], r["launches"]["train"]["steps"])
+            != TRAINER_STEP_LAUNCHES
+            or launches_per(r["launches"]["val"], r["launches"]["val"]["steps"])
+            != TRAINER_VAL_LAUNCHES for r in whole):
+        raise AssertionError(f"dp: the resumed DP trainer differs ({gaps}), its ranks differ, "
+                             f"or its launches are off: {trainer['launches_per_train_step']}, "
+                             f"{trainer['launches_per_val_step']}")
+    return rank_launches, launches_per(train_counts, train_counts["steps"]), \
+        launches_per(val_counts, val_counts["steps"])
+
+
+def sharded_inputs(root):
+    """The Benchmark cell's six fragments and the KITTI cell's three pairs
+    under ``root`` (ground truth refined into the ICP cache), a checkpoint
+    of random weights for each, and ``calls(name)``: generate-desc and
+    eval-kitti through the CLI's rank functions, each timed on a second
+    call in its process (the first holds the warm-up), writing under
+    ``root/name``. The split lists ride along to the ranks; this process's
+    KITTI test list is the new one until the caller restores ``saved``."""
+    pcloud, _, _ = write_benchmark_scene(root)
+    for scene in threedmatch.TEST_SCENE_NAMES:      # the walk's other scenes: empty
+        os.makedirs(os.path.join(pcloud, scene, "seq-01"), exist_ok=True)
+    cfg = bench_config()
+    ckpt = save_checkpoint(root, "checkpoint",
+                           create_train_state(build_model_from_config(cfg), cfg, 1), cfg,
+                           1, 0.0, 1, cfg.best_val_metric)
+    kroot = os.path.join(root, "kitti")
+    write_kitti_scans(kroot)
+    kcfg = kitti_config(dataset="KITTIPairDataset", kitti_root=kroot, kitti_max_time_diff=3)
+    kckpt = save_checkpoint(kroot, "checkpoint",
+                            create_train_state(build_model_from_config(kcfg), kcfg, 1), kcfg,
+                            1, 0.0, 1, kcfg.best_val_metric)
+    saved = dict(KITTIPairDataset.DATA_FILES)
+    KITTIPairDataset.DATA_FILES["test"] = os.path.join(kroot, "test_list.txt")
+    dset = KITTIPairDataset("test", kcfg, random_rotation=False, random_scale=False,
+                            icp_device="cuda")
+    for i in range(len(dset)):            # the ICP cache, for every run
+        dset[i]
+    splits = cli._split_lists()
+
+    def calls(name):
+        args, warm = (argparse.Namespace(checkpoint=ckpt, pcloud_root=pcloud,
+                                         out_root=os.path.join(root, out))
+                      for out in (name, name + "_warm_up"))
+        kargs = argparse.Namespace(checkpoint=kckpt, kitti_root=kroot)
+        return [(dp.call_counted, (cli._generate_desc_rank, (args,), (warm,))),
+                (dp.call_counted, (cli._eval_kitti_rank, (kargs, splits), (kargs, splits)))]
+
+    return calls, saved
+
+
+def phase_sharded(root, one, two, spawn_s):
+    """generate-desc and eval-kitti on two ranks sharing the card over gloo
+    (``two``: each rank's ``sharded_inputs`` calls; the CLI itself refuses
+    two ranks on one card) against rank 0 alone in the same processes
+    (``one``, the serial path). fragments/s and pairs/s come from the whole call's
+    seconds (the slowest rank's); generate-desc's "All Time" ratio is given
+    beside them. Fails unless every file equals the one rank's (xyz exact,
+    descriptors within GRID_DESC_ATOL), the KITTI summaries are equal, and
+    the launches add up to FRAGMENT_LAUNCHES a fragment and
+    KITTI_PAIR_LAUNCHES a pair."""
+    runs = {name: [[rank[j][0] for rank in ranks] for j in range(2)]
+            for name, ranks in (("one_rank", one), ("two_ranks", two))}
+    devices = {"one_rank": SHARED_CARD[:1], "two_ranks": SHARED_CARD}
+
+    def summary(name, j, unit):
+        ranks = runs[name][j]
+        call_s = max(r[2] for r in ranks)
+        result = ranks[0][0]
+        n = result["count"] if j == 0 else result["num_pairs"]
+        return {"backend": "none" if name == "one_rank" else mesh_backend(devices[name]),
+                "devices": devices[name],
+                "stats" if j == 0 else "summary": result,
+                "launches": {k: sum(r[1][k] for r in ranks) for k in ranks[0][1]},
+                "call_seconds": call_s, f"{unit}_per_s": n / call_s}
+
+    out = {}
+    gd = {name: summary(name, 0, "fragments") for name in runs}
+    for r in gd.values():
+        r["fragments_per_s_all_time"] = r["stats"]["count"] / r["stats"]["all_time"]
+    scene = os.path.join(BENCH_SCENE, "seq-01")
+    worst = 0.0
+    for k in range(BENCH_FRAGMENTS):
+        a, b = (np.load(os.path.join(root, name, scene, f"cloud_bin_{k}.npz"))
+                for name in ("one_rank", "two_ranks"))
+        if not (np.array_equal(a["xyz"], b["xyz"]) and np.array_equal(a["points"], b["points"])):
+            raise AssertionError(f"sharded: fragment {k}'s voxels differ")
+        worst = max(worst, float(np.abs(a["feature"] - b["feature"]).max()))
+    want = {k: (BENCH_FRAGMENTS - 1) * FRAGMENT_LAUNCHES["grid"][k]
+            + FRAGMENT_LAUNCHES["exact"][k] for k in FRAGMENT_LAUNCHES["grid"]}
+    out["generate_desc"] = {**gd, "descriptor_max_abs_err": worst,
+                            "descriptor_tol": GRID_DESC_ATOL, "launches_want": want,
+                            "two_over_one": {
+                                "call_seconds": gd["two_ranks"]["fragments_per_s"]
+                                / gd["one_rank"]["fragments_per_s"],
+                                "all_time": gd["two_ranks"]["fragments_per_s_all_time"]
+                                / gd["one_rank"]["fragments_per_s_all_time"]}}
+    if worst > GRID_DESC_ATOL or gd["two_ranks"]["stats"]["count"] != BENCH_FRAGMENTS or \
+            any(r["launches"] != want for r in gd.values()):
+        raise AssertionError(f"sharded: generate-desc {out['generate_desc']}")
+    ek = {name: summary(name, 1, "pairs") for name in runs}
+    n_pairs = ek["one_rank"]["summary"]["num_pairs"]
+    want = {k: v * n_pairs for k, v in KITTI_PAIR_LAUNCHES.items()}
+    out["eval_kitti"] = {**ek, "launches_want": want,
+                         "two_over_one": ek["two_ranks"]["pairs_per_s"]
+                         / ek["one_rank"]["pairs_per_s"]}
+    if ek["one_rank"]["summary"] != ek["two_ranks"]["summary"] or n_pairs < 1 or \
+            any(r["launches"] != want for r in ek.values()):
+        raise AssertionError(f"sharded: eval-kitti {out['eval_kitti']}")
+    emit({"phase": "sharded", "spawn_seconds": spawn_s, **out})
+    return {"generate_desc": gd["two_ranks"]["launches"],
+            "eval_kitti": ek["two_ranks"]["launches"]}
+
+
+def phase_ranks(cfg, ctx):
+    """Every path of two ranks sharing the card over gloo, in one pair of
+    new processes (``dp.run_calls``): the ``dp_rank_calls``, then the
+    ``sharded_inputs`` calls on rank 0 alone (``dp.solo``: the one-rank
+    reference, the serial path) and on both ranks. Emits the ``dp`` and
+    ``sharded`` lines; returns ``phase_dp``'s and ``phase_sharded``'s
+    launches."""
+    with tempfile.TemporaryDirectory(prefix="ranks_") as root:
+        calls, saved = sharded_inputs(os.path.join(root, "sharded"))
+        try:
+            dp_calls = dp_rank_calls(cfg, ctx, os.path.join(root, "dp_trainer"))
+            one = [(dp.solo, c) for c in calls("one_rank")]
+            t = time.perf_counter()
+            ranks = spawn_ranks(dp.run_calls, SHARED_CARD,
+                                (dp_calls + one + calls("two_ranks"),))
+            spawn_s = time.perf_counter() - t
+        finally:
+            KITTIPairDataset.DATA_FILES.clear()
+            KITTIPairDataset.DATA_FILES.update(saved)
+        names = sorted(os.path.basename(d)
+                       for d in glob.glob(os.path.join(root, "dp_trainer", "split", "*")))
+        n, m = len(dp_calls), len(dp_calls) + len(one)
+        dp_launches = phase_dp(cfg, ctx, [r[:n] for r in ranks], spawn_s, names)
+        sharded_launches = phase_sharded(os.path.join(root, "sharded"), [ranks[0][n:m]],
+                                         [r[m:] for r in ranks], spawn_s)
+    return dp_launches, sharded_launches
+
+
+def phase_builders(pair, rounds=BUILDER_ROUNDS):
+    """Every pyramid builder on the bench-scale pair, each through a
+    PairRegistrar with kernel C's quantize (the same weights): tables bit
+    for bit equal to the search builder's, launches per pair (A 20, B 2,
+    C 1, and D 1 for "banded" alone), and, interleaved round by round, the
+    pyramid's ms on one quantized pair and the whole pair's latency."""
+    regs = {b: PairRegistrar(compact_impl="kernel", map_impl=b) for b in BUILDERS}
+    args = (pair.xyz0, pair.xyz1, pair.image0, pair.image1, pair.T_gt, np.eye(6))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = regs["search"].quantize(regs["search"].prepare(*args[:4]))
+    tables, launches = {}, {}
+    for b, reg in regs.items():
+        float(reg(*args, generator=gen)["rte"])          # warm-up
+        tables[b] = pyramid_tables(reg.pyramid(q))
+        reset_counts()
+        float(reg(*args, generator=gen)["rte"])
+        launches[b] = read_counts()
+    ref = tables["search"]
+    differ = {b: [k for k in ref if k not in t or not torch.equal(t[k], ref[k])]
+              for b, t in tables.items()}
+    pyr_ms, pair_ms = ({b: [] for b in BUILDERS} for _ in range(2))
+    for _ in range(rounds):
+        for b, reg in regs.items():
+            ms, _ = host_ms(lambda: reg.pyramid(q), 1)
+            pyr_ms[b].append(ms)
+            t = time.perf_counter()
+            float(reg(*args, generator=gen)["rte"])
+            pair_ms[b].append((time.perf_counter() - t) * 1e3)
+    want = {b: dict(GRID_LAUNCHES, word_match=int(b == "banded")) for b in BUILDERS}
+    emit({"phase": "builders", "compact_impl": "kernel", "rounds": rounds,
+          "order": list(BUILDERS), "tables": len(ref),
+          "tables_differing": differ, "launches_per_pair": launches,
+          "pyramid_ms": pyr_ms, "pyramid_ms_median": {b: float(np.median(v))
+                                                       for b, v in pyr_ms.items()},
+          "pair_ms": pair_ms, "pair_ms_median": {b: float(np.median(v))
+                                                 for b, v in pair_ms.items()}})
+    if any(differ.values()) or launches != want:
+        raise AssertionError(f"builders: tables differ {differ} or launches {launches} "
+                             f"!= {want}")
+    del regs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_roofline(reg, pyr, kernel_a, stages):
+    """``sparse/roofline.py`` on the bench-scale pyramid: its bytes of the
+    20 kernel-A convs equal the kernel phase's (conv by conv through the
+    maps), and the forward's bytes over its ms as a share of PEAK_BYTES."""
+    calls = forward_convs(reg.model, pyr)
+    per_conv = [(c.name, conv_traffic_bytes(c.n_out, c.n_in, c.k, c.cin, c.cout,
+                                            occupancy=c.occupancy, nbr=c.nbr)) for c in calls]
+    a_convs = [b for c, (_, b) in zip(calls, per_conv) if c.k > 1 and not c.occupancy]
+    total = forward_hbm_bytes(reg.model, pyr)
+    fwd_ms = stages["forward_ms"]
+    entry = {"phase": "roofline", "convs": len(calls), "kernel_a_convs": len(a_convs),
+             "kernel_a_bytes": sum(a_convs), "kernel_phase_bytes": kernel_a["bytes"],
+             "forward_bytes": total, "per_conv_bytes": per_conv,
+             "forward_ms": fwd_ms,
+             "forward_bytes_per_s_share_of_peak": total / (fwd_ms / 1e3) / PEAK_BYTES,
+             "kernel_a_ms": kernel_a["ms"],
+             "kernel_a_bytes_per_s_share_of_peak":
+                 kernel_a["bytes"] / (kernel_a["ms"] / 1e3) / PEAK_BYTES,
+             "kernel_a_bound_ms": kernel_a["bound_ms"], "peak_bytes_per_s": PEAK_BYTES}
+    emit(entry)
+    if len(a_convs) != len(MAIN_PATH_CONVS) or sum(a_convs) != kernel_a["bytes"]:
+        raise AssertionError(f"roofline: the model's kernel-A bytes {sum(a_convs)} over "
+                             f"{len(a_convs)} convs against the kernel phase's "
+                             f"{kernel_a['bytes']}")
+    return entry
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -2729,10 +3198,10 @@ def main():
 
     reg = PairRegistrar()               # bench config, the card, seed 0
     pair = bench_pair(reg.config)
-    launches, seconds_per_pair, q, pyr, feats = phase_pipeline(reg, pair)
+    launches, seconds_per_pair, q, pyr, feats, stages = phase_pipeline(reg, pair)
     grid = dict(compact_impl="kernel", map_impl="banded")
     reg_grid = PairRegistrar(**grid)    # the same weights (seed 0)
-    grid_launches, grid_seconds_per_pair, q_grid, _, _ = phase_pipeline(
+    grid_launches, grid_seconds_per_pair, q_grid, _, _, _ = phase_pipeline(
         reg_grid, pair, "grid_pipeline", GRID_LAUNCHES, reference=(q, pyr, feats),
         n_pairs=15)
 
@@ -2751,6 +3220,7 @@ def main():
     for kern in grid_kernels:          # counted in the grid pipeline's timed run
         kern["launches"] = grid_launches[kern["name"]]
     kernels += grid_kernels
+    phase_roofline(reg, pyr, kernels[0], stages)
 
     phase_reference()
     phase_reference("grid", **grid)
@@ -2758,6 +3228,7 @@ def main():
     # before the profiler: a CUDA profiling session slows the host's later
     # launches in the same process
     phase_paths(reg, reg_grid, pair)
+    builder_launches = phase_builders(pair)
     phase_profile(reg, pair, seconds_per_pair * 1e3)
     own = phase_profile(reg_grid, pair, grid_seconds_per_pair * 1e3, "grid_profile")
     if own["compact_single_pass"][1] != 1:
@@ -2772,6 +3243,9 @@ def main():
     train_kernels = phase_train_kernels(cfg, batch, gen)
     phase_train_reference()
     train_launches, seconds_per_step, state, step, step_gen = phase_train(cfg, batch)
+    # data parallelism, one rank: before the profiler, which slows this
+    # process's later launches; the two ranks run last (phase_ranks)
+    dp_ctx = phase_dp_one_rank(cfg, batch)
     profile_units(lambda: step(state, batch, step_gen), seconds_per_step * 1e3,
                   "train_profile", "step", 3)
     a, b = kernels[0], kernels[1]
@@ -2827,6 +3301,23 @@ def main():
 
     # ---- the zoo, the converter, DAM, the visualizer, the offline tools ----
     phase_slice8(gen, kernels)
+
+    # ---- two ranks in new processes: the DP step and trainer, sharded
+    # generate-desc and eval-kitti ------------------------------------------
+    (dp_launches, dp_trainer_launches, dp_val_launches), sharded_launches = \
+        phase_ranks(cfg, dp_ctx)
+    for kern in kernels:
+        name = kern["name"]
+        kern.update({"builders_launches_per_pair": {b: builder_launches[b][name]
+                                                    for b in BUILDERS},
+                     "dp_launches_per_rank_step": dp_launches[name],
+                     "dp_trainer_launches_per_rank_step": dp_trainer_launches[name],
+                     "dp_trainer_launches_per_rank_val_step": dp_val_launches[name],
+                     "sharded_generate_desc_launches": sharded_launches["generate_desc"][name],
+                     "sharded_eval_kitti_launches": sharded_launches["eval_kitti"][name]})
+        if not (kern["dp_launches_per_rank_step"] + kern["sharded_generate_desc_launches"]
+                + kern["dp_trainer_launches_per_rank_step"]):
+            raise AssertionError(f"the new paths never launched {name}")
 
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,7 +19,13 @@ subcommands of the JAX package's CLI:
   python -m imfnet_tpu_torch.cli compute-radius --fragments-dir ...
 
 Every run goes to the card unless ``--device cpu`` asks for the plain
-PyTorch path, and raises without a card otherwise. ``--checkpoint`` names a
+PyTorch path, and raises without a card otherwise. ``train``,
+``generate-desc`` and ``eval-kitti`` take ``--num-devices N`` (0: every
+device): N > 1 starts N ranks, one process a device (``cuda:l`` for local
+rank l, or the CPU with ``--device cpu``, over gloo), and
+``--num-processes P --process-id p --coordinator host:port`` spreads them
+over P processes (hosts), N/P each, process p holding global ranks
+p·N/P onwards. ``--checkpoint`` names a
 checkpoint directory the port wrote (``meta.json`` + ``state.pt``: ``train``
 and ``convert-imfnet`` write them); the JAX package's flax msgpack state is
 not read.
@@ -60,12 +66,11 @@ def _base_config(args):
         with open(os.path.join(resume_dir, "config.json")) as f:
             base = Config.from_json(f.read())
         if "resume" not in over:
-            ckpts = sorted(
-                d for d in os.listdir(resume_dir)
-                if d.startswith("checkpoint") and
-                os.path.isdir(os.path.join(resume_dir, d)))
-            if ckpts:
-                over["resume"] = os.path.join(resume_dir, ckpts[-1])
+            from imfnet_tpu_torch.train.checkpoint import last_checkpoint
+
+            last = last_checkpoint(resume_dir)
+            if last:
+                over["resume"] = last
         over.pop("dataset", None)  # the resumed config's dataset wins
         return base.replace(**over)
 
@@ -85,12 +90,79 @@ def _load_model_and_vars(checkpoint: str, device=None):
     return load_model_from_checkpoint(checkpoint, resolve_device(device))
 
 
+def _available_devices(device_type: str) -> int:
+    """Devices one host can give its ranks: the cards, or on the CPU its
+    cores."""
+    import torch
+
+    return torch.cuda.device_count() if device_type == "cuda" else (os.cpu_count() or 1)
+
+
+def _num_ranks(args, device_type: str) -> int:
+    """``--num-devices`` (0: every device of every process's host)."""
+    n = 1 if args.num_devices is None else args.num_devices
+    return n if n else (args.num_processes or 1) * _available_devices(device_type)
+
+
+def _rank_layout(args, n: int, device_type: str) -> dict:
+    """spawn_ranks' keywords for this process's share of ``n`` ranks."""
+    procs, pid = args.num_processes or 1, args.process_id or 0
+    if not 0 <= pid < procs:
+        raise ValueError(f"--process-id {pid} is not one of {procs} processes")
+    if n % procs or n < procs:
+        raise ValueError(f"--num-devices {n} does not split over --num-processes {procs}")
+    local = n // procs
+    avail = _available_devices(device_type)
+    if local > avail:
+        raise ValueError(f"--num-devices {n}: {local} ranks on this host but only {avail} "
+                         f"devices are addressable")
+    if procs > 1 and not args.coordinator:
+        raise ValueError("--num-processes above 1 needs --coordinator host:port")
+    init = None
+    if args.coordinator:
+        init = args.coordinator if "://" in args.coordinator else f"tcp://{args.coordinator}"
+    devices = ["cpu" if device_type == "cpu" else f"cuda:{i}"
+               for _ in range(procs) for i in range(local)]
+    return dict(devices=devices, rank_offset=pid * local, hosts=procs, init_method=init)
+
+
+def _spawn(args, fn, n: int, device_type: str, fn_args=()):
+    """Runs ``fn(mesh, *fn_args)`` on this process's ranks; prints global
+    rank 0's result as a JSON line when it returns one."""
+    from imfnet_tpu_torch.parallel.mesh import spawn_ranks
+
+    layout = _rank_layout(args, n, device_type)
+    logging.info("%d ranks, %d in this process, on %s", n,
+                 len(layout["devices"]) // layout["hosts"], layout["devices"][0])
+    devices = layout.pop("devices")
+    results = spawn_ranks(fn, devices, fn_args, **layout)
+    if layout["rank_offset"] == 0 and results[0] is not None:
+        print(json.dumps(results[0]))
+
+
+def _device_type(args) -> str:
+    from imfnet_tpu_torch.utils.device import resolve_device
+
+    return resolve_device(args.device).type
+
+
+def _generate_desc_rank(mesh, args):
+    from imfnet_tpu_torch.eval.threedmatch import generate_descriptors
+
+    model, config = _load_model_and_vars(args.checkpoint, mesh.device)
+    return generate_descriptors(model, config, args.pcloud_root, args.out_root,
+                                num_devices=mesh.world_size, mesh=mesh)
+
+
 def cmd_generate_desc(args):
     from imfnet_tpu_torch.eval.threedmatch import generate_descriptors
 
+    device_type = _device_type(args)
+    n = _num_ranks(args, device_type)
+    if n > 1 or (args.num_processes or 1) > 1:
+        return _spawn(args, _generate_desc_rank, n, device_type, (args,))
     model, config = _load_model_and_vars(args.checkpoint, args.device)
-    stats = generate_descriptors(model, config, args.pcloud_root, args.out_root,
-                                 num_devices=args.num_devices)
+    stats = generate_descriptors(model, config, args.pcloud_root, args.out_root)
     print(json.dumps(stats))
 
 
@@ -108,15 +180,41 @@ def cmd_eval_3dmatch(args):
     print(json.dumps(summary))
 
 
-def cmd_eval_kitti(args):
+def _eval_kitti(args, device, mesh=None):
     from imfnet_tpu_torch.data.datasets import make_data_loader
     from imfnet_tpu_torch.eval.kitti import evaluate_kitti
 
-    model, config = _load_model_and_vars(args.checkpoint, args.device)
+    model, config = _load_model_and_vars(args.checkpoint, device)
     if args.kitti_root:
         config = config.replace(kitti_root=args.kitti_root)
-    loader = make_data_loader(config, "test", 1, shuffle=False, device=args.device)
-    print(json.dumps(evaluate_kitti(model, config, loader, num_devices=args.num_devices)))
+    loader = make_data_loader(config, "test", 1, shuffle=False, device=device)
+    return evaluate_kitti(model, config, loader,
+                          num_devices=1 if mesh is None else mesh.world_size, mesh=mesh)
+
+
+def _split_lists():
+    """Each dataset class's own split lists (``DATA_FILES``), which a rank
+    process takes over from the process that started it."""
+    from imfnet_tpu_torch.data.datasets import ALL_DATASETS
+
+    return {cls.__name__: dict(cls.DATA_FILES) for cls in ALL_DATASETS
+            if "DATA_FILES" in vars(cls)}
+
+
+def _eval_kitti_rank(mesh, args, split_lists):
+    from imfnet_tpu_torch.data.datasets import dataset_class
+
+    for name, files in split_lists.items():
+        dataset_class(name).DATA_FILES = files
+    return _eval_kitti(args, mesh.device, mesh)
+
+
+def cmd_eval_kitti(args):
+    device_type = _device_type(args)
+    n = _num_ranks(args, device_type)
+    if n > 1 or (args.num_processes or 1) > 1:
+        return _spawn(args, _eval_kitti_rank, n, device_type, (args, _split_lists()))
+    print(json.dumps(_eval_kitti(args, args.device)))
 
 
 def cmd_compare(args):
@@ -143,17 +241,27 @@ def cmd_convert_desc(args):
     print(json.dumps({"written": len(out)}))
 
 
+def _train_rank(mesh, config):
+    from imfnet_tpu_torch.parallel.dp import run_trainer
+
+    return run_trainer(mesh, config)
+
+
 def cmd_train(args):
     from imfnet_tpu_torch.data.datasets import make_data_loader
-    from imfnet_tpu_torch.train.trainer import Trainer
+    from imfnet_tpu_torch.train.trainer import Trainer, resolve_data_parallel
 
-    # one process on one device: the flags of the JAX package's multi-host
-    # bring-up are accepted, and anything they would spread raises
-    if (args.num_processes or 1) != 1 or (args.process_id or 0) != 0 or args.coordinator:
-        raise NotImplementedError(
-            "--num-processes/--process-id/--coordinator: the port trains in one "
-            "process on one device until data parallelism is ported (ROADMAP 1.12)")
     config = _base_config(args)
+    procs = args.num_processes or 1
+    if config.data_parallel != 1 or procs > 1:
+        # the ranks to start: --num-devices 0 is every device there is,
+        # clamped so that each epoch takes a step (the JAX Trainer's rule)
+        device_type = _device_type(args)
+        batches = len(make_data_loader(config, "train", config.batch_size, device=args.device))
+        n = resolve_data_parallel(config, batches, procs * _available_devices(device_type))
+        config = config.replace(data_parallel=n)
+        if n > 1 or procs > 1:
+            return _spawn(args, _train_rank, n, device_type, (config,))
     train_loader = make_data_loader(config, "train", config.batch_size, device=args.device)
     val_loader = make_data_loader(config, "val", config.val_batch_size, device=args.device)
     trainer = Trainer(config, train_loader, val_loader, device=args.device)
@@ -361,12 +469,18 @@ def main(argv=None):
                          "one). 'cpu' runs the plain PyTorch path")
     pt.add_argument("--num-devices", type=int, default=None,
                     dest="num_devices",
-                    help="data-parallel size over the pair axis: 0 = auto, "
-                         "1 = one device (default); more raises until data "
-                         "parallelism is ported")
-    pt.add_argument("--num-processes", type=int, default=None)
-    pt.add_argument("--process-id", type=int, default=None)
-    pt.add_argument("--coordinator", type=str, default=None)
+                    help="data-parallel ranks over the pair axis: 0 = every "
+                         "device (clamped to the loader), 1 = one device "
+                         "(default), N = N ranks, one process a device")
+
+    def processes_flags(parser):
+        # ranks over several processes (hosts): N/P ranks each
+        parser.add_argument("--num-processes", type=int, default=None)
+        parser.add_argument("--process-id", type=int, default=None)
+        parser.add_argument("--coordinator", type=str, default=None,
+                            help="host:port (or a file:// URL) where the ranks meet")
+
+    processes_flags(pt)
     pt.set_defaults(fn=cmd_train)
 
     def device_flag(parser):
@@ -376,8 +490,9 @@ def main(argv=None):
 
     def devices_flag(parser):
         parser.add_argument("--num-devices", type=int, default=1,
-                            help="devices to spread over; only 1 until data "
-                                 "parallelism is ported")
+                            help="ranks to spread the items over, one process a "
+                                 "device (0 = every device)")
+        processes_flags(parser)
 
     pg = sub.add_parser("generate-desc")
     pg.add_argument("--checkpoint", required=True)

@@ -21,6 +21,7 @@ The positive search happens on the device in the train step
 """
 from __future__ import annotations
 
+import copy
 import glob
 import logging
 import os
@@ -31,6 +32,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from imfnet_tpu_torch.config import Config
 from imfnet_tpu_torch.data.collate import VoxelizedPair, collate_pairs, voxelize_np
@@ -309,7 +311,12 @@ class KITTIPairDataset(PairDataset):
             _, sel1 = voxelize_np(xyz1, 0.05)
             M2 = self._run_icp(apply_transform_np(xyz0[sel0], M), xyz1[sel1],
                                device=self.icp_device) @ M
-            np.save(fname, M2)
+            # written whole under another name, then renamed: ranks that
+            # read the same split never load a file half written
+            tmp = f"{fname}.{os.getpid()}.tmp"
+            with open(tmp, "wb") as f:
+                np.save(f, M2)
+            os.replace(tmp, fname)
         _kitti_icp_cache[fname] = M2
         return M2
 
@@ -459,10 +466,11 @@ class PairLoader:
         # of ``group`` batches (= local devices per process) rotate over
         # processes, so the union over processes at each global step equals
         # the single-process epoch. Identical epoch seed on every process
-        # keeps the permutations aligned. Only complete rounds (one group
-        # per rank) are kept: a ragged tail would give ranks unequal batch
-        # counts, and the rank with the extra group would enter the
-        # gradient all-reduce alone and deadlock the job.
+        # keeps the permutations aligned. With drop_last (training) only
+        # complete rounds (one group per rank) are kept: a ragged tail would
+        # give ranks unequal batch counts, and the rank with the extra group
+        # would enter the gradient all-reduce alone and deadlock the job.
+        # Without it (evaluation, no collective per batch) the tail is kept.
         self.shard = shard
         # samples dropped by ValueError (e.g. KITTI <1000-GT-match rejection,
         # `lib/data_loaders.py:588`); reset each __iter__
@@ -478,14 +486,28 @@ class PairLoader:
         rank, world, group = self.shard
         rounds = (self._total_batches() // group) // world
         g = b // group
-        return g % world == rank and g // world < rounds
+        return g % world == rank and (not self.drop_last or g // world < rounds)
 
     def __len__(self):
         t = self._total_batches()
         if self.shard is None:
             return t
+        if not self.drop_last:
+            return sum(map(self._keep_batch, range(t)))
         _, world, group = self.shard
         return ((t // group) // world) * group  # complete rounds only
+
+    def for_rank(self, rank: int, world: int) -> "PairLoader":
+        """This loader's batches for rank ``rank`` of ``world``: batch b
+        when b ≡ rank (mod world), the ragged tail included, so that each
+        rank loads only its own pairs (sharded evaluation)."""
+        if self.shard is not None:
+            raise ValueError("for_rank: the loader is sharded already")
+        out = copy.copy(self)
+        out.rng = np.random.RandomState()
+        out.rng.set_state(self.rng.get_state())
+        out.shard, out.drop_last, out.skip_count = (rank, world, 1), False, 0
+        return out
 
     def _epoch_indices(self):
         idx = np.arange(len(self.dataset))
@@ -494,6 +516,11 @@ class PairLoader:
         return idx
 
     def __iter__(self):
+        return (batch for _, batch in self.numbered())
+
+    def numbered(self):
+        """Iterates ``(b, batch)``: ``b`` is the batch's place in the
+        epoch's order, counting the batches the dataset rejected."""
         self.skip_count = 0
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = object()
@@ -531,9 +558,9 @@ class PairLoader:
                                 "skipping pair %d (%s); %d skipped so far",
                                 int(i), e, self.skip_count)
                             continue
-                    if samples and not put(collate_pairs(
+                    if samples and not put((b, collate_pairs(
                             samples, self.n_pad, grid_extent=self.grid_extent,
-                            device="cpu")):
+                            device="cpu"))):
                         return
             except BaseException as e:  # surface in the consumer thread —
                 put(e)                  # a silent stop would truncate epochs
@@ -560,7 +587,8 @@ def make_data_loader(config: Config, phase: str, batch_size: int,
                      shuffle: Optional[bool] = None, device=None) -> PairLoader:
     """The config's dataset for ``phase`` behind a PairLoader. ``device``
     is where a KITTI dataset refines uncached ground truth (default the
-    card)."""
+    card). In a process group of several ranks the train split is sharded
+    over them."""
     if phase not in ("train", "trainval", "val", "test"):
         raise ValueError(f"unknown phase {phase!r}")
     if shuffle is None:
@@ -585,10 +613,15 @@ def make_data_loader(config: Config, phase: str, batch_size: int,
     # `PairDataset.reset_seed`, `lib/data_loaders.py:133-135`, seeded at
     # `train_3DMatch.py:26-27`)
     dset.reset_seed(config.seed)
-    # one process: nothing to shard (the JAX package shards the train loader
-    # over its processes here)
+    # data parallelism: in a process group of several ranks the train split
+    # is sharded, one batch a rank a step (step i of rank r takes batch
+    # i·world + r, as the JAX package's device r does); validation and test
+    # stay whole, so that every rank computes the same metrics
+    shard = None
+    if phase in ("train", "trainval") and dist.is_initialized() and dist.get_world_size() > 1:
+        shard = (dist.get_rank(), dist.get_world_size(), 1)
     return PairLoader(dset, batch_size, config.max_points, shuffle=shuffle,
-                      seed=config.seed, shard=None,
+                      seed=config.seed, shard=shard,
                       grid_extent=(tuple(config.grid_extent)
                                    if config.use_grid_maps else None))
 

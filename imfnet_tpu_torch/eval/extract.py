@@ -134,7 +134,9 @@ def make_extractor(model: torch.nn.Module, *, config: Config, n_pad: int,
     """Returns extract(xyz_raw[nraw,3], n_raw, image[1,H,W,3]) →
     (xyz_down[n_pad,3], feats[n_pad,C], num_valid), tensors on the model's
     device: one fixed voxel pad, the grid path at the smallest fitting
-    extent bucket, else the exact path."""
+    extent bucket, else the exact path. ``extract.fits`` is the last call's
+    ``coarse_levels_fit`` (a 0-d bool tensor): False where a coarse level
+    filled its capacity and the descriptors come from a truncated pyramid."""
     vox = voxel_size if voxel_size is not None else config.voxel_size
     dev = _model_device(model)
 
@@ -146,8 +148,10 @@ def make_extractor(model: torch.nn.Module, *, config: Config, n_pad: int,
         pyr = _pyramid_fn(config, n_pad, extent)(sv.coords, sv.num_valid)
         model.eval()
         feats = model(sv, pyr, torch.as_tensor(image, dtype=torch.float32).to(dev))
+        extract.fits = coarse_levels_fit(pyr)
         return xyz_down, feats, sv.num_valid
 
+    extract.fits = None
     return extract
 
 

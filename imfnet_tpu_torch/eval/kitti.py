@@ -1,5 +1,5 @@
 """KITTI odometry evaluation: RANSAC success rate (RTE < 2 m, RRE < 5°)
-(``imfnet_tpu.eval.kitti``, its single-device branch).
+(``imfnet_tpu.eval.kitti``).
 
 `scripts/evaluation_kitti.py:29-147`: a loader of test pairs, the model on
 both sides (``train.step.forward_pair`` in ``eval()``), feature-NN RANSAC
@@ -8,7 +8,11 @@ voxel_size), success accounting and timing meters. Pairs the dataset
 rejected (<1000 ground-truth matches) are counted, not evaluated
 (:66-70, `lib/data_loaders.py:588`). The draws of pair ``i`` come from a
 generator on the device seeded with ``i``, where the JAX package passes
-``PRNGKey(i)``.
+``PRNGKey(i)``; pair ``i`` is the i-th of the test list, where the JAX
+package numbers the pairs it loaded (the two differ after a rejected pair).
+With ``num_devices`` > 1 the pairs are split over the ranks of ``mesh``
+(pair ``i`` loaded and registered on rank ``i mod D``) and gathered, so the
+summary equals the one-device run's.
 """
 from __future__ import annotations
 
@@ -22,7 +26,6 @@ from imfnet_tpu_torch.config import Config
 from imfnet_tpu_torch.eval.registration import make_pair_registration
 from imfnet_tpu_torch.train.step import forward_pair
 from imfnet_tpu_torch.train.trainer import batch_to_device
-from imfnet_tpu_torch.utils.device import require_one_device
 from imfnet_tpu_torch.utils.timer import AverageMeter, Timer
 
 
@@ -38,12 +41,20 @@ def registration_errors(T_gt, transformation):
 
 
 def evaluate_kitti(model: torch.nn.Module, config: Config, loader,
-                   num_devices: int = 1, register=None) -> Dict:
-    """``loader`` yields PairBatch of one pair (random rotation off); the
-    model runs on the device of its parameters. ``register(i, batch, f0,
-    f1)`` replaces the default registration of pair ``i`` (its draws from a
-    generator seeded with ``i``)."""
-    require_one_device(num_devices)
+                   num_devices: int = 1, register=None, mesh=None) -> Dict:
+    """``loader`` is a ``PairLoader`` of one pair a batch (random rotation
+    off); the model runs on the device of its parameters. ``register(i,
+    batch, f0, f1)`` replaces the default registration of pair ``i`` (its
+    draws from a generator seeded with ``i``), pair ``i`` being the i-th of
+    the loader's epoch, rejected pairs counted (``PairLoader.numbered``).
+    ``num_devices`` > 1 (0: every rank of ``mesh``) needs ``mesh`` with that
+    many ranks: each rank loads and registers its own pairs
+    (``PairLoader.for_rank``, ``parallel.dp.make_parallel_kitti_eval``), and
+    the transforms are gathered to all."""
+    D = num_devices if num_devices else (mesh.world_size if mesh is not None else 1)
+    if D > 1 and (mesh is None or mesh.world_size != D):
+        raise ValueError(f"evaluate_kitti: num_devices={D} runs on as many ranks; "
+                         f"this process is {'no rank' if mesh is None else mesh}")
     dev = next(model.parameters()).device
     register_pair = make_pair_registration(
         # the reference feeds the full voxelized clouds to RANSAC
@@ -71,7 +82,7 @@ def evaluate_kitti(model: torch.nn.Module, config: Config, loader,
 
     def fail_count():
         # pairs the dataset rejected: PairLoader counts them as it skips
-        return getattr(loader, "skip_count", 0)
+        return loader.skip_count
 
     def account(i, T_gt, transformation):
         rte, rre = registration_errors(T_gt, transformation)
@@ -90,24 +101,45 @@ def evaluate_kitti(model: torch.nn.Module, config: Config, loader,
                 success_meter.avg, fail_count(), feat_timer.avg, reg_timer.avg)
 
     model.eval()
-    for i, batch in enumerate(loader):
+    # pair i is the i-th of the test list, a pair the dataset rejected
+    # counted: its draws do not move with the rejections before it
+    if D > 1:
+        from imfnet_tpu_torch.parallel.dp import make_parallel_kitti_eval
+        from imfnet_tpu_torch.parallel.mesh import all_gather
+
+        loader = loader.for_rank(mesh.rank, D)     # each rank loads its own pairs
+
+        def keep(i, batch, f0, f1):
+            return {"T_gt": batch.T_gt[0],
+                    "transformation": register(i, batch, f0, f1)["transformation"]}
+
         feat_timer.tic()
-        batch = batch_to_device(batch, dev)
-        with torch.no_grad():
-            f0, f1 = forward_pair(model, batch, train=False, config=config)
-            out = register(i, batch, f0, f1)
-        T = out["transformation"].cpu().numpy()
+        done = make_parallel_kitti_eval(model, config, mesh, keep)(loader.numbered())
         feat_timer.toc()
+        skipped = sum(all_gather(mesh, loader.skip_count))
         reg_timer.tic()
-        account(i, batch.T_gt[0].cpu().numpy(), T)
+        for i, out in done:
+            account(i, out["T_gt"].numpy(), out["transformation"].numpy())
         reg_timer.toc()
+    else:
+        for i, batch in loader.numbered():
+            feat_timer.tic()
+            batch = batch_to_device(batch, dev)
+            with torch.no_grad():
+                f0, f1 = forward_pair(model, batch, train=False, config=config)
+                T = register(i, batch, f0, f1)["transformation"].cpu().numpy()
+            feat_timer.toc()
+            reg_timer.tic()
+            account(i, batch.T_gt[0].cpu().numpy(), T)
+            reg_timer.toc()
+        skipped = fail_count()
 
     result = {
         "rte": rte_meter.avg,
         "rre": rre_meter.avg,
         "success_rate": success_meter.avg,
         "num_pairs": success_meter.count,
-        "failed_loads": fail_count(),
+        "failed_loads": skipped,
     }
     logging.info("KITTI eval: %s", result)
     return result

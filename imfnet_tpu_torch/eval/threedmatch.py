@@ -9,10 +9,11 @@ result json/txt, keypoint caches, the metrics CSV, the summary JSON and the
 printed FMR/RR/RRE/RTE/IR summary. Scene lists follow
 `scripts/evaluation_3dmatch.py:36-56`.
 
-One device: the JAX package's sharded generation over a device mesh is not
-ported (``num_devices`` other than 1 raises). The RANSAC draws of pair ``k``
-come from a ``torch.Generator`` seeded with ``k`` where the JAX package
-passes ``PRNGKey(k)``; a caller can pass its own ``register``.
+Descriptor generation shards over ranks (``num_devices`` > 1 with this
+rank's ``mesh``: ``cli generate-desc --num-devices`` starts them). The
+RANSAC draws of pair ``k`` come from a ``torch.Generator`` seeded with ``k``
+where the JAX package passes ``PRNGKey(k)``; a caller can pass its own
+``register``.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from imfnet_tpu_torch.eval.registration import make_keypoint_registration
 from imfnet_tpu_torch.geom.image import load_image, process_image
 from imfnet_tpu_torch.geom.ply import read_ply
 from imfnet_tpu_torch.geom.trajectory import read_info_file, read_log
-from imfnet_tpu_torch.utils.device import require_one_device, resolve_device
+from imfnet_tpu_torch.utils.device import resolve_device
 from imfnet_tpu_torch.utils.hashing import voxel_key_rows
 
 TEST_SCENE_NAMES = [
@@ -76,6 +77,8 @@ def generate_descriptors(
     seq_name: str = "seq-01",
     raw_buckets=RAW_BUCKETS,
     num_devices: int = 1,
+    sharded_n_pad: int = 32768,
+    mesh=None,
 ) -> Dict:
     """Walk test scenes; per fragment: PLY + image → extract → save
     `.npz{points, xyz, feature}` (`scripts/generate_desc.py:83-123`) on the
@@ -86,9 +89,15 @@ def generate_descriptors(
     writes run on threads beside the device loop, as in the JAX package.
 
     Returns the 'All Time' / 'AVG' stats (seconds of extraction, as
-    `generate_desc.py:190` reports them)."""
-    require_one_device(num_devices)
-    extract = make_bucketed_extractor(model, config=config)
+    `generate_desc.py:190` reports them).
+
+    ``num_devices`` > 1 (0: every rank of ``mesh``) shards the fragments
+    over the ranks of ``mesh``, which must have that many
+    (``_generate_descriptors_sharded``)."""
+    D = num_devices if num_devices else (mesh.world_size if mesh is not None else 1)
+    if D > 1 and (mesh is None or mesh.world_size != D):
+        raise ValueError(f"generate_descriptors: num_devices={D} runs on as many ranks; "
+                         f"this process is {'no rank' if mesh is None else mesh}")
     scenes = scenes or TEST_SCENE_NAMES
 
     work = []
@@ -118,6 +127,10 @@ def generate_descriptors(
     def save_one(out_path, points, xyz_down, feats):
         np.savez_compressed(out_path, points=points, xyz=xyz_down, feature=feats)
 
+    if D > 1:
+        return _generate_descriptors_sharded(model, config, work, load_one, save_one, mesh,
+                                             n_pad=sharded_n_pad)
+    extract = make_bucketed_extractor(model, config=config)
     total_t, count = 0.0, 0
     lookahead = 4  # bounded: each prefetched fragment holds ~6 MB host RAM
     with ThreadPoolExecutor(max_workers=2) as readers, \
@@ -145,6 +158,67 @@ def generate_descriptors(
     stats = {"all_time": total_t, "avg_time": total_t / max(count, 1), "count": count}
     logging.info("All Time: %.3f, AVG: %.4f (%d fragments)",
                  stats["all_time"], stats["avg_time"], stats["count"])
+    return stats
+
+
+def _generate_descriptors_sharded(model, config: Config, work, load_one, save_one, mesh,
+                                  n_pad: int = 32768) -> Dict:
+    """Rank ``r`` of W loads fragments r, r + W, ... of ``work``, extracts
+    them at one voxel pad ``n_pad`` (``parallel.dp.make_sharded_extractor``)
+    and writes their ``.npz`` files. A fragment with ``n_pad`` voxels or
+    more, or whose coarse levels do not fit, is extracted again through the
+    bucketed extractor, with a warning: never truncated. Every rank has
+    listed the work before any writes (a barrier). The stats are gathered:
+    ``all_time`` is the slowest rank's extraction seconds, ``count`` the
+    fragments of all ranks."""
+    import torch.distributed as dist
+
+    from imfnet_tpu_torch.parallel.dp import make_sharded_extractor, own_items
+    from imfnet_tpu_torch.parallel.mesh import all_gather
+
+    dist.barrier(group=mesh.group)
+    mine = list(own_items(mesh, len(work)))
+    extract = make_sharded_extractor(model, config, mesh, n_pad=n_pad)
+    fallback = None
+    total_t, count = 0.0, 0
+    with ThreadPoolExecutor(max_workers=2) as readers, \
+            ThreadPoolExecutor(max_workers=2) as writers:
+        pending_saves = deque()
+        queue = deque((i, readers.submit(load_one, work[i])) for i in mine[:4])
+        next_i = len(queue)
+        while queue:
+            i, fut = queue.popleft()
+            if next_i < len(mine):
+                queue.append((mine[next_i], readers.submit(load_one, work[mine[next_i]])))
+                next_i += 1
+            points, raw, n_raw, image, out_path = fut.result()
+            t0 = time.perf_counter()
+            xyz_down, feats, nvalid, fits = extract([(i, (raw, n_raw, image[None]))])[i]
+            nv, fits = int(nvalid), bool(fits)
+            if nv >= n_pad or not fits:
+                logging.warning(
+                    "fragment %s overflows the sharded capacity (%d voxels / n_pad %d, "
+                    "coarse levels fit: %s); extracting it again through the bucketed "
+                    "extractor", out_path, nv, n_pad, fits)
+                if fallback is None:
+                    fallback = make_bucketed_extractor(model, config=config)
+                xd, fd = fallback(raw, n_raw, image[None])
+            else:
+                xd, fd = xyz_down[:nv].numpy(), feats[:nv].float().numpy()
+            total_t += time.perf_counter() - t0
+            count += 1
+            while len(pending_saves) >= 4:
+                pending_saves.popleft().result()
+            pending_saves.append(writers.submit(save_one, out_path, points, xd, fd))
+        while pending_saves:
+            pending_saves.popleft().result()
+    per_rank = all_gather(mesh, (total_t, count))
+    all_time = max(t for t, _ in per_rank)
+    count = sum(c for _, c in per_rank)
+    stats = {"all_time": all_time, "avg_time": all_time / max(count, 1), "count": count,
+             "num_devices": mesh.world_size}
+    logging.info("All Time: %.3f, AVG: %.4f (%d fragments, %d ranks, %s)", stats["all_time"],
+                 stats["avg_time"], count, mesh.world_size, mesh.backend)
     return stats
 
 

@@ -68,6 +68,14 @@ def save_checkpoint(
     return path
 
 
+def last_checkpoint(run_dir: str) -> Optional[str]:
+    """The last ``checkpoint*`` directory of a run directory in sorted
+    order (``train --resume-dir``), or None."""
+    names = sorted(d for d in os.listdir(run_dir)
+                   if d.startswith("checkpoint") and os.path.isdir(os.path.join(run_dir, d)))
+    return os.path.join(run_dir, names[-1]) if names else None
+
+
 def _load_state_file(path: str, map_location="cpu") -> Dict[str, Any]:
     return torch.load(os.path.join(path, STATE_FILE), map_location=map_location,
                       weights_only=True)

@@ -17,14 +17,15 @@ import torch
 
 from imfnet_tpu_torch.config import Config
 from imfnet_tpu_torch.match.nn import nn_auto
+from imfnet_tpu_torch.parallel.mesh import Mesh, float_buffers, mean_over_ranks
 from imfnet_tpu_torch.sparse.coords import SparseVoxels, row_mask
-from imfnet_tpu_torch.sparse.grid import GridSpec, build_pyramid_grid
+from imfnet_tpu_torch.sparse.grid import GRID_MAP_IMPLS, GridSpec, build_pyramid_grid
 from imfnet_tpu_torch.sparse.kernel_map import build_pyramid
 from imfnet_tpu_torch.train.losses import (contrastive_loss, hardest_contrastive_loss,
                                            hardest_triplet_loss, triplet_loss)
 from imfnet_tpu_torch.train.state import TrainState
 
-MAP_IMPLS = ("search", "banded")
+MAP_IMPLS = ("search",) + GRID_MAP_IMPLS
 
 
 LOSS_FNS = {
@@ -71,16 +72,16 @@ def make_pyramid_fn(config: Config, n_pad: int, num_batches: int = 2,
     """fn(coords, num_valid) → CoordinatePyramid at this config's level
     capacities.
 
-    ``map_impl`` picks the builder; both give the same tables for
+    ``map_impl`` picks the builder; all give the same tables for
     in-extent inputs:
     - "search": sort + ``torch.searchsorted`` (``kernel_map.build_pyramid``),
       which needs no extent;
-    - "banded": ``grid.build_pyramid_grid`` on compact word tables through
-      kernel D, in the static extent ``extent`` (default
-      ``config.grid_extent``) for ``num_batches`` batches, as the JAX
-      package's ``use_grid``/``extent`` do.
-    The dense "packed" grid builder is the banded maps' oracle and stays a
-    ``build_pyramid_grid`` option only. The pyramid has one level per entry
+    - a grid builder of ``grid.GRID_MAP_IMPLS`` ("banded", the compact word
+      tables through kernel D, which "auto" resolves to; "packed", "ywide",
+      "transpose", plain PyTorch over dense tables): ``grid.build_pyramid_grid``
+      in the static extent ``extent`` (default ``config.grid_extent``) for
+      ``num_batches`` batches, as the JAX package's ``use_grid``/``extent``
+      do. The pyramid has one level per entry
     of ``config.level_capacity_divisors`` (4 by default; SimpleNet3 needs
     5), where the JAX package always builds 4."""
     if map_impl not in MAP_IMPLS:
@@ -239,11 +240,31 @@ def _apply(state: TrainState) -> None:
     state.step += 1
 
 
-def make_train_step(config: Config, map_impl: Optional[str] = None):
+def mean_step_over_ranks(model: torch.nn.Module, metrics: Dict[str, torch.Tensor],
+                         mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """What ``jax.lax.pmean`` averages over the data-parallel axis, after a
+    rank's backward: the gradients (one all-reduce of them all), the float
+    buffers (the running statistics each rank's forward moved from the same
+    old values) and the metrics, which are returned."""
+    mean_over_ranks([p.grad for p in model.parameters() if p.grad is not None], mesh)
+    mean_over_ranks(float_buffers(model), mesh)
+    keys = sorted(metrics)
+    stacked = mean_over_ranks([torch.stack([metrics[k].float() for k in keys])], mesh)[0]
+    return dict(zip(keys, stacked.unbind()))
+
+
+def make_train_step(config: Config, map_impl: Optional[str] = None,
+                    mesh: Optional[Mesh] = None):
     """train_step(state, batch, generator=None, draws=None) → (state,
     metrics): loss, backward, one optimizer step, one step of the learning
     rate schedule. ``state`` (``train.state.create_train_state``) is updated
-    in place and returned. ``map_impl`` goes to ``forward_pair``."""
+    in place and returned. ``map_impl`` goes to ``forward_pair``.
+
+    With a ``mesh`` (``parallel.mesh.make_mesh``; the JAX package's
+    ``axis_name``) each rank takes its own batch and the step averages the
+    gradients, running statistics and metrics over the ranks before the
+    optimizer step (``mean_step_over_ranks``); without one it is the
+    one-device step."""
 
     def train_step(state: TrainState, batch: PairBatch,
                    generator: Optional[torch.Generator] = None,
@@ -252,6 +273,8 @@ def make_train_step(config: Config, map_impl: Optional[str] = None):
         loss, metrics = make_loss_fn(state.model, config, map_impl)(batch, generator, draws)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            metrics = mean_step_over_ranks(state.model, metrics, mesh)
         _apply(state)
         return state, metrics
 

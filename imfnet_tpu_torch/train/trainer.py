@@ -13,6 +13,15 @@ device through pinned memory. Random draws: one ``torch.Generator`` on the
 device, seeded from ``config.seed``, feeds every training step; the
 validation step of batch ``i`` gets a generator seeded with ``i``, so a
 validation epoch does not depend on how many steps were trained before it.
+
+Data parallelism (``config.data_parallel`` > 1) runs one Trainer a rank,
+each given the rank's ``parallel.mesh.Mesh`` (``cli train --num-devices``
+starts them): the train loader is sharded over the ranks, each step takes
+one batch a rank and averages over them (``make_train_step(mesh=)``), rank
+``r`` draws from a generator seeded with ``parallel.dp.rank_seed(seed,
+r)``, every rank validates on the whole split and gates on rank 0's result,
+and rank 0 alone writes ``config.json``, metrics and checkpoints, which keep
+every rank's random streams.
 """
 from __future__ import annotations
 
@@ -26,6 +35,8 @@ import torch
 
 from imfnet_tpu_torch.config import Config
 from imfnet_tpu_torch.models import load_model
+from imfnet_tpu_torch.parallel.dp import rank_generator, replicate
+from imfnet_tpu_torch.parallel.mesh import Mesh, all_gather
 from imfnet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from imfnet_tpu_torch.train.state import TrainState, create_train_state
 from imfnet_tpu_torch.train.step import PairBatch, make_accum_steps, make_train_step
@@ -35,18 +46,24 @@ from imfnet_tpu_torch.utils.timer import AverageMeter, Timer
 
 
 class MetricsWriter:
-    """JSONL scalar log (stands in for tensorboardX, `lib/trainer.py:101`)."""
+    """JSONL scalar log (stands in for tensorboardX, `lib/trainer.py:101`).
+    ``enabled=False`` (every rank but 0) writes nothing."""
 
-    def __init__(self, out_dir: str):
-        os.makedirs(out_dir, exist_ok=True)
-        self._f = open(os.path.join(out_dir, "metrics.jsonl"), "a")
+    def __init__(self, out_dir: str, enabled: bool = True):
+        self._f = None
+        if enabled:
+            os.makedirs(out_dir, exist_ok=True)
+            self._f = open(os.path.join(out_dir, "metrics.jsonl"), "a")
 
     def add_scalar(self, tag: str, value, step: int):
+        if self._f is None:
+            return
         self._f.write(json.dumps({"tag": tag, "value": float(value), "step": int(step)}) + "\n")
         self._f.flush()
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 def build_model_from_config(config: Config, compute_dtype=None,
@@ -101,6 +118,28 @@ def _set_rng_state(rng: np.random.RandomState, s: Dict[str, Any]) -> None:
                    s["has_gauss"], s["cached"]))
 
 
+def resolve_data_parallel(config: Config, batches: int, available: int) -> int:
+    """The number of ranks ``config.data_parallel`` asks for, given the
+    epoch's ``batches`` over all ranks and the ``available`` devices: 0 is
+    every device, clamped so that each epoch takes at least one optimizer
+    step (and 1 with ``iter_size`` > 1). Raises for more than are there,
+    or an epoch that would take no step."""
+    iters = max(config.iter_size, 1)
+    n = config.data_parallel
+    if n == 0:
+        n = max(min(available, batches // iters), 1)
+        if n > 1 and iters > 1:
+            n = 1   # accumulation is not wired with data parallelism
+    if n > available:
+        raise ValueError(f"config.data_parallel={n} but only {available} devices are "
+                         f"addressable")
+    if batches // iters // n == 0:
+        raise ValueError(f"loader yields {batches} batches per epoch but data_parallel={n} "
+                         f"× iter_size={config.iter_size} consumes more; no optimizer step "
+                         f"would run")
+    return n
+
+
 class Trainer:
     _MAX_METRICS = ("feat_match_ratio", "success")
     _MIN_METRICS = ("rre", "rte")
@@ -112,31 +151,38 @@ class Trainer:
         val_data_loader: Optional[Iterable] = None,
         steps_per_epoch: Optional[int] = None,
         device=None,
+        mesh: Optional[Mesh] = None,
     ):
         """``device`` defaults to the card and raises without one; pass
-        ``device="cpu"`` for the plain PyTorch path."""
-        self.device = resolve_device(device)
+        ``device="cpu"`` for the plain PyTorch path. ``mesh`` makes this
+        Trainer one rank of a data-parallel run on ``mesh.device``: a train
+        loader that is not sharded yet is given this rank's shard."""
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.config = config
         self.data_loader = data_loader
         self.val_data_loader = val_data_loader
-        # one card: 1, or 0 ("auto", every device there is); data
-        # parallelism over several is not ported
-        if config.data_parallel not in (0, 1):
-            raise NotImplementedError(
-                f"config.data_parallel={config.data_parallel}: the port trains on "
-                f"one device until data parallelism is ported (ROADMAP 1.12)")
-        self.n_devices = 1
+        self.mesh = mesh
+        world = mesh.world_size if mesh is not None else 1
+        self.rank = mesh.rank if mesh is not None else 0
+        if world > 1 and getattr(data_loader, "shard", False) is None:
+            data_loader.shard = (self.rank, world, 1)
+        # one device a rank: without a mesh one is there
+        self.n_devices = self._resolve_devices(steps_per_epoch, world)
+        if self.n_devices > 1:
+            if config.iter_size > 1:
+                raise NotImplementedError(
+                    "iter_size gradient accumulation is not wired together with data "
+                    "parallelism; use data_parallel=1 or iter_size=1")
+            if world != self.n_devices:
+                raise ValueError(f"config.data_parallel resolves to {self.n_devices} ranks "
+                                 f"but the mesh has {world}")
+        self.is_main = self.rank == 0
         batches = steps_per_epoch or len(data_loader)
-        if batches // max(config.iter_size, 1) == 0:
-            raise ValueError(
-                f"loader yields {batches} batches per epoch but "
-                f"data_parallel={self.n_devices} × iter_size={config.iter_size} consumes "
-                f"more; no optimizer step would run")
         self.model = build_model_from_config(config).to(self.device)
-        # the schedule needs the optimizer steps per epoch before the
-        # optimizer exists
+        # the schedule needs the optimizer steps per epoch (of this rank's
+        # loader) before the optimizer exists
         self.steps_per_epoch = max(batches // max(config.iter_size, 1), 1)
-        self.train_step = make_train_step(config)
+        self.train_step = make_train_step(config, mesh=mesh)
         if config.iter_size > 1:
             self.grad_step, self.apply_step = make_accum_steps(config)
         self.val_step = make_val_step(self.model, config)
@@ -146,16 +192,23 @@ class Trainer:
         self.best_val_epoch = -1
         self.start_epoch = 1
         self.out_dir = config.out_dir
-        os.makedirs(self.out_dir, exist_ok=True)
-        with open(os.path.join(self.out_dir, "config.json"), "w") as f:
-            f.write(config.to_json())
-        self.writer = MetricsWriter(self.out_dir)
+        if self.is_main:
+            os.makedirs(self.out_dir, exist_ok=True)
+            with open(os.path.join(self.out_dir, "config.json"), "w") as f:
+                f.write(config.to_json())
+        self.writer = MetricsWriter(self.out_dir, enabled=self.is_main)
         self.state: Optional[TrainState] = None
-        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self.generator = rank_generator(config.seed, self.rank, self.device)
         # the last training epoch's timers and loss meter, for a caller that
         # reports them
         self.total_timer, self.data_timer, self.move_timer = Timer(), Timer(), Timer()
         self.loss_meter = AverageMeter()
+
+    def _resolve_devices(self, steps_per_epoch: Optional[int], world: int) -> int:
+        """``resolve_data_parallel`` over the epoch's batches on all ranks
+        (this rank's loader holds 1/world of them) and the mesh's ranks."""
+        batches = (steps_per_epoch or len(self.data_loader)) * world
+        return resolve_data_parallel(self.config, batches, world)
 
     # -- state init ---------------------------------------------------------
     def init_state(self, example_batch: Optional[PairBatch] = None) -> TrainState:
@@ -174,6 +227,8 @@ class Trainer:
             self._restore_streams(meta["extra"])
             logging.info("resumed from %s; next epoch %d", self.config.resume,
                          self.start_epoch)
+        if self.mesh is not None:
+            replicate(self.mesh, self.model)
         return self.state
 
     def _host_streams(self):
@@ -188,12 +243,22 @@ class Trainer:
 
     def _streams(self) -> Dict[str, Any]:
         """The random streams a resumed run needs to continue as the
-        uninterrupted one would: the training generator and the loaders'."""
+        uninterrupted one would: the training generator and the loaders'.
+        Under a mesh of several ranks, a collective: every rank's streams
+        (``rank_streams``, in rank order) beside rank 0's."""
         out: Dict[str, Any] = {"generator": self.generator.get_state()}
         out.update((name, _rng_state(rng)) for name, rng in self._host_streams())
+        if self.mesh is not None and self.mesh.world_size > 1:
+            out["rank_streams"] = all_gather(self.mesh, dict(out))
         return out
 
     def _restore_streams(self, extra: Dict[str, Any]) -> None:
+        ranks = extra.get("rank_streams")
+        if ranks is not None:
+            if self.mesh is None or len(ranks) != self.mesh.world_size:
+                raise ValueError(f"the checkpoint holds the streams of {len(ranks)} ranks; "
+                                 f"resume it on as many")
+            extra = ranks[self.rank]
         if "generator" in extra:
             self.generator.set_state(extra["generator"].cpu())
         for name, rng in self._host_streams():
@@ -313,6 +378,10 @@ class Trainer:
         finally:
             _close(it)
         result = {k: m.avg for k, m in meters.items()}
+        if self.mesh is not None and self.mesh.world_size > 1:
+            # every rank validates the whole split; all gate on rank 0's
+            # result, so that all take part in the same checkpoint writes
+            result = all_gather(self.mesh, result)[0]
         logging.info(
             "Validation: loss %.3f rte %.3f rre %.3f success %.3f "
             "hit_ratio %.3f fmr %.3f",
@@ -321,9 +390,14 @@ class Trainer:
         )
         return result
 
-    def _save(self, epoch, val, name) -> str:
+    def _save(self, epoch, val, name) -> Optional[str]:
+        """The checkpoint's path; None on every rank but 0, which alone
+        writes (the streams are gathered from every rank first)."""
+        extra = self._streams()
+        if not self.is_main:
+            return None
         return save_checkpoint(
             self.out_dir, name, self.state, self.config, epoch,
             self.best_val, self.best_val_epoch, self.best_val_metric,
-            val_value=val[self.best_val_metric], extra=self._streams(),
+            val_value=val[self.best_val_metric], extra=extra,
         )

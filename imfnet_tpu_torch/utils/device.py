@@ -19,11 +19,3 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "the plain PyTorch path on the CPU")
     return dev
 
-
-def require_one_device(num_devices: int) -> None:
-    """The port runs on one device: any other ``num_devices`` raises until
-    data parallelism is ported."""
-    if num_devices != 1:
-        raise NotImplementedError(
-            f"num_devices={num_devices}: the port runs on one device until data "
-            f"parallelism is ported (ROADMAP 1.12)")

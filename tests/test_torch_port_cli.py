@@ -122,12 +122,19 @@ def test_base_config_equals_the_jax_cli(dataset):
 
 
 def test_train_refuses_without_a_card_and_beyond_one_device(tmp_path, monkeypatch):
+    """More ranks than the host has devices raise ``ValueError`` (here a
+    card machine with one card), as the JAX package's ``data_parallel >
+    avail`` does; so do ranks over processes without a coordinator. The
+    ranks themselves run in tests/test_torch_port_trainer_dp.py."""
     out = ["--out-dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="data_parallel"):
-        cli.main(["train", *SMALL, "--device", "cpu", "--num-devices", "2", *out])
-    with pytest.raises(NotImplementedError, match="one process"):
-        cli.main(["train", *SMALL, "--device", "cpu", "--num-processes", "2",
-                  "--process-id", "1", "--coordinator", "localhost:1234", *out])
+    with pytest.raises(ValueError, match="coordinator"):
+        cli.main(["train", *SMALL, "--device", "cpu", "--num-devices", "2",
+                  "--num-processes", "2", "--process-id", "1", *out])
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="devices are addressable"):
+            cli.main(["train", *SMALL, "--num-devices", "2", *out])
     # the KITTI datasets are ported: with no scans under --kitti-root the
     # loader finds none
     with pytest.raises(AssertionError, match="no velodyne data"):
@@ -214,8 +221,11 @@ def test_benchmark_subcommands_on_the_cpu(tmp_path, monkeypatch, capsys):
               str(tmp_path / "kp"), "--out-root", str(tmp_path / "conv")])
     assert _json_lines(capsys) == [{"written": 1}]
 
-    with pytest.raises(NotImplementedError, match="1.12"):
-        cli.main(["generate-desc", *common, "--device", "cpu", "--num-devices", "2"])
+    with monkeypatch.context() as m:   # a card machine with one card
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="devices are addressable"):
+            cli.main(["generate-desc", *common, "--num-devices", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["generate-desc", *common])
@@ -234,9 +244,12 @@ def test_eval_kitti_subcommand_on_the_cpu(tmp_path, monkeypatch, capsys):
     result = _json_lines(capsys)[-1]
     assert result["num_pairs"] == 2 and result["failed_loads"] == 0
     assert 0.0 <= result["success_rate"] <= 1.0
-    with pytest.raises(NotImplementedError, match="1.12"):
-        cli.main(["eval-kitti", "--checkpoint", ckpt, "--kitti-root", str(root),
-                  "--device", "cpu", "--num-devices", "2"])
+    with monkeypatch.context() as m:   # a card machine with one card
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="devices are addressable"):
+            cli.main(["eval-kitti", "--checkpoint", ckpt, "--kitti-root", str(root),
+                      "--num-devices", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["eval-kitti", "--checkpoint", ckpt, "--kitti-root", str(root)])

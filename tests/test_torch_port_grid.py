@@ -420,15 +420,14 @@ def test_make_pyramid_fn_grid_builders_equal_search():
     table, n = _table(np.random.RandomState(5), 2048, 0, 600)
     cfg = bench_config()
     nv = torch.tensor(n, dtype=torch.int32)
-    want, got = (_pyramid_tables(make_pyramid_fn(cfg, 2048, 2, extent=EXTENT,
-                                                 map_impl=impl)(_t(table), nv))
-                 for impl in ("search", "banded"))
-    for k in want:
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    # the dense "packed" builder is build_pyramid_grid's oracle only
-    for impl in ("packed", "ywide"):
-        with pytest.raises(ValueError, match="map_impl"):
-            make_pyramid_fn(cfg, 2048, map_impl=impl)
+    want, *gots = (_pyramid_tables(make_pyramid_fn(cfg, 2048, 2, extent=EXTENT,
+                                                   map_impl=impl)(_t(table), nv))
+                   for impl in ("search", "banded", "packed", "ywide"))
+    for got in gots:
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    with pytest.raises(ValueError, match="map_impl"):
+        make_pyramid_fn(cfg, 2048, map_impl="dense")
 
 
 def test_unsorted_word_table_raises():

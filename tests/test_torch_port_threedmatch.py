@@ -205,9 +205,16 @@ def test_replay_of_saved_keypoints_reproduces_the_run(evaluated):
 
 
 def test_num_devices_other_than_one_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="1.12"):
+    """More than one device needs this process to be a rank of as many
+    (``mesh``); the sharded run is in tests/test_torch_port_parallel_eval.py."""
+    from imfnet_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="ranks"):
         ttm.generate_descriptors(None, threedmatch_config(), str(tmp_path), str(tmp_path),
                                  num_devices=2)
+    with pytest.raises(ValueError, match="ranks"):
+        ttm.generate_descriptors(None, threedmatch_config(), str(tmp_path), str(tmp_path),
+                                 num_devices=2, mesh=Mesh(3, 0, "cpu", None, "gloo"))
 
 
 def test_generate_descriptors_writes_npz(tmp_path):

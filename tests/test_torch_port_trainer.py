@@ -333,11 +333,19 @@ def test_every_loss_kind_takes_steps(tmp_path, kind):
 
 
 def test_device_and_data_parallel_rules(tmp_path, monkeypatch):
+    """Without a mesh a Trainer has one device: data_parallel 2 is more than
+    there are, 0 (auto) is 1. A mesh of two ranks takes data_parallel 2
+    (``parallel.mesh.Mesh``; its constructor runs no collective)."""
+    from imfnet_tpu_torch.parallel.mesh import Mesh
+
     cfg = _config(threedmatch_config, tmp_path)
     loader = make_data_loader(cfg, "train", 1)
-    with pytest.raises(NotImplementedError, match="data_parallel"):
+    with pytest.raises(ValueError, match="devices are"):
         Trainer(cfg.replace(data_parallel=2), loader, device="cpu")
     assert Trainer(cfg.replace(data_parallel=0), loader, device="cpu").n_devices == 1
+    two = Trainer(cfg.replace(data_parallel=2), make_data_loader(cfg, "train", 1),
+                  mesh=Mesh(2, 1, torch.device("cpu"), None, "gloo"))
+    assert two.n_devices == 2 and not two.is_main and two.data_loader.shard == (1, 2, 1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(cfg, loader)
