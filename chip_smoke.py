@@ -130,8 +130,20 @@ Phases, each printed as one JSON line:
             validation step A 42, B 1, D 2, a best-validation checkpoint
             exists, and the last checkpoint loaded into a new Trainer takes a
             next step bit-equal (loss, parameters, buffers, momentum) to the
-            first trainer's. The train_kernel phase also holds kernel D to
-            its plain version on the grid pyramid of a side of the batch
+            first trainer's. The run's loaders are the card's defaults: a
+            worker process for training (workers=1), a thread for
+            validation; the phase then runs the same config with the
+            training loader's thread (workers=0) and fails unless every
+            loss, and the parameters, buffers and momentum after the first
+            epoch, equal the first run's bit for bit and no loader worker is
+            alive after the runs. Both runs' steps/s with the loader (over
+            all epochs and over epochs 2-3, after the worker's start),
+            median step, data share and move ms are printed with
+            nvidia-smi's name and power limit, beside the trainer's step on
+            one repeated batch (loader_bench.py reads the two loaders over
+            100-step epochs). The train_kernel phase
+            also holds kernel D to its plain version on the grid pyramid of
+            a side of the batch
   trained_pair  a held-out synthetic pair (a seed no training or validation
             sample has) through PairRegistrar(state_dict=...) with the seeded
             random weights and with the trainer's: inlier ratio, RRE, RTE,
@@ -214,6 +226,11 @@ Phases, each printed as one JSON line:
             from the slowest rank's seconds of the whole call, a second
             call in the same process (the first holds the warm-up), and
             generate-desc's "All Time" ratio beside them
+  rejecting_ranks  fault 4 in the same pair of processes: one epoch of the
+            DP Trainer (4 batches of 2 pairs, 50 000 points) whose rank 1
+            dataset rejects both pairs of its first batch; fails unless
+            both ranks end at their loader's steps, every batch each took
+            holds 2 pairs, and rank 1 counts the rejections
 Then one line {"kernels": [...]} (each kernel's launches on every path,
 these included) and, last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -221,6 +238,7 @@ Any failure raises and exits non-zero; so does a machine without CUDA.
 import argparse
 import glob
 import json
+import multiprocessing
 import os
 import re
 import subprocess
@@ -233,7 +251,8 @@ import torch
 
 from imfnet_tpu_torch import cli
 from imfnet_tpu_torch.config import kitti_config, threedmatch_config
-from imfnet_tpu_torch.data.datasets import KITTIPairDataset, make_data_loader, velo2cam
+from imfnet_tpu_torch.data.datasets import (KITTIPairDataset, SyntheticPairDataset,
+                                             make_data_loader, velo2cam)
 from imfnet_tpu_torch.data.synthetic import _surface_cloud, synthetic_batch, synthetic_pair
 from imfnet_tpu_torch.eval import threedmatch
 from imfnet_tpu_torch.eval.extract import (DEFAULT_BUCKETS, make_bucketed_extractor,
@@ -343,6 +362,8 @@ TRAINER_VAL_LAUNCHES = {"sparse_conv_gather_gemm": 42, "flash_nn": 1,
                         "sparse_conv_gather_gemm.scalar": 2}
 # the trainer phase: 3 epochs of 4 batches of 2 pairs, 2 validation pairs an epoch
 TRAINER_RUN = dict(synthetic_length=8, max_epoch=3, val_max_iter=2)
+LOADER_WORKER = "PairLoader worker"   # the name of a loader's worker process
+REPEATED_WARM, REPEATED_STEPS = 2, 6  # the trainer's step on one batch, after the runs
 HELD_OUT_SEED = 777_777  # no training sample (seeds 1_000_003 + 7919 i) or validation sample (i)
 TRAIN_BATCH = 2          # pairs per training batch
 TRAIN_N_PAD = 65536      # voxel capacity of a batch side
@@ -367,6 +388,7 @@ SEARCH_D2_ATOL = 2e-6         # f32 d2 of coordinates of a few metres against f6
 
 
 T_START = time.perf_counter()
+DEVICE = {}   # what the device phase read: nvidia-smi's name and power limit
 
 
 def emit(obj):
@@ -453,6 +475,7 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
+    DEVICE["nvidia_smi"] = smi
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "name": torch.cuda.get_device_name(0),
@@ -1449,7 +1472,8 @@ class CountingTrainer(Trainer):
         self.counts = {"train": dict.fromkeys(TRAIN_LAUNCHES, 0),
                        "val": dict.fromkeys(TRAIN_LAUNCHES, 0)}
         self.steps = {"train": 0, "val": 0}
-        self.epochs, self.vals, self.step_ms = [], [], []
+        self.epochs, self.vals, self.step_ms, self.losses = [], [], [], []
+        self.first_epoch_state = None
         step = self.train_step
 
         def timed_step(state, batch, generator):
@@ -1457,6 +1481,7 @@ class CountingTrainer(Trainer):
             out = step(state, batch, generator)
             torch.cuda.synchronize()
             self.step_ms.append((time.perf_counter() - t) * 1e3)
+            self.losses.append(out[1]["loss"].detach().clone())
             return out
 
         self.train_step = timed_step
@@ -1477,7 +1502,10 @@ class CountingTrainer(Trainer):
                             "seconds": seconds, "mean_loss": self.loss_meter.avg,
                             "total_timer_avg_s": self.total_timer.avg,
                             "data_timer_avg_s": self.data_timer.avg,
+                            "longest_batch_wait_s": self.data_timer.max,
                             "move_timer_avg_ms": self.move_timer.avg * 1e3})
+        if self.first_epoch_state is None:
+            self.first_epoch_state = dp.train_state_arrays(self.state)
 
     def _valid_epoch(self):
         before = read_counts()
@@ -1487,24 +1515,56 @@ class CountingTrainer(Trainer):
         return out
 
 
+def loader_workers_alive():
+    """The loaders' worker processes this process still has."""
+    return [p.name for p in multiprocessing.active_children() if p.name == LOADER_WORKER]
+
+
+def run_rates(trainer):
+    """What a trainer's epochs read: steps/s with the loader over all its
+    epochs and after the first (which holds the worker's start), the median
+    step, the loader's wait as a share of an iteration, the first epoch's
+    longest wait for a batch, and the move to the card."""
+    ep = trainer.epochs
+    steps = sum(e["steps"] for e in ep)
+    later = ep[1:]
+    return {"epochs": len(ep), "steps": steps,
+            "steps_per_s_with_loader": steps / sum(e["seconds"] for e in ep),
+            "steps_per_s_after_first_epoch": (sum(e["steps"] for e in later)
+                                              / sum(e["seconds"] for e in later)),
+            "step_ms_median": float(np.median(trainer.step_ms)),
+            "data_share_of_total": (sum(e["data_timer_avg_s"] * e["steps"] for e in ep)
+                                    / sum(e["total_timer_avg_s"] * e["steps"] for e in ep)),
+            "longest_batch_wait_s_first_epoch": ep[0]["longest_batch_wait_s"],
+            "move_timer_ms": float(np.mean([e["move_timer_avg_ms"] for e in ep]))}
+
+
 def phase_trainer(out_dir):
     """The trainer at full width on SyntheticPairDataset (200k points a
-    fragment): loaders, epochs with validation, checkpoints. Fails unless
-    every loss is finite, the last epoch's mean loss is below the first's,
-    a training step launches TRAINER_STEP_LAUNCHES and a validation step
-    TRAINER_VAL_LAUNCHES, a best-validation checkpoint exists, and the last
-    checkpoint, loaded into a new Trainer, takes a next step bit-equal to
-    the first trainer's. The run's files go to ``out_dir``."""
+    fragment): the training loader in a worker process and the validation
+    loader in a thread (the card's defaults), epochs with validation,
+    checkpoints; then the same run with the training loader's thread
+    (workers=0). Fails unless every loss is finite, the last
+    epoch's mean loss is below the first's, a training step launches
+    TRAINER_STEP_LAUNCHES and a validation step TRAINER_VAL_LAUNCHES, a
+    best-validation checkpoint exists, the last checkpoint, loaded into a
+    new Trainer, takes a next step bit-equal to the first trainer's, the
+    two runs are bit-equal (every loss; the first epoch's parameters,
+    buffers and momentum) and no loader worker is alive after them. The
+    runs' files go to ``out_dir``."""
     cfg = bench_config().replace(
         batch_size=TRAIN_BATCH, val_batch_size=1, dataset="SyntheticPairDataset",
         synthetic_n_points=200_000, max_points=TRAIN_N_PAD, stat_freq=1, out_dir=out_dir,
         **TRAINER_RUN)
 
-    def loaders(c):
-        return (make_data_loader(c, "train", c.batch_size),
+    def loaders(c, workers):
+        return (make_data_loader(c, "train", c.batch_size, workers=workers),
                 make_data_loader(c, "val", c.val_batch_size))
 
-    trainer = CountingTrainer(cfg, *loaders(cfg))
+    trainer = CountingTrainer(cfg, *loaders(cfg, None))
+    if (trainer.data_loader.workers, trainer.val_data_loader.workers) != (1, 0):
+        raise AssertionError("trainer: the card's loaders are not a worker process for "
+                             "training and a thread for validation")
     trainer.init_state()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1515,6 +1575,23 @@ def phase_trainer(out_dir):
     seconds = time.perf_counter() - t0
     launches = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    alive_after_run = loader_workers_alive()
+
+    # ---- the same run with the training loader's thread: its epochs after
+    # the first read against the worker's epochs after the first
+    cfg0 = cfg.replace(out_dir=os.path.join(out_dir, "thread"))
+    thread = CountingTrainer(cfg0, *loaders(cfg0, 0))
+    thread.init_state()
+    thread.train()
+    torch.cuda.synchronize()
+    n_first = thread.epochs[0]["steps"]
+    states_equal, states_gap = arrays_gap(thread.first_epoch_state, trainer.first_epoch_state,
+                                          "trainer: the first epoch, workers 0 against 1")
+    losses_equal = (len(thread.losses) == len(trainer.losses)
+                    and all(torch.equal(x, y) for x, y in zip(trainer.losses, thread.losses)))
+    first_equal = states_equal and losses_equal
+    rates = {"workers_1": run_rates(trainer), "workers_0": run_rates(thread)}
+    del thread
 
     with open(os.path.join(out_dir, "metrics.jsonl")) as f:
         scalars = [json.loads(ln) for ln in f]
@@ -1531,7 +1608,7 @@ def phase_trainer(out_dir):
     # ---- resume on the card: the last checkpoint into a new Trainer
     last = os.path.join(out_dir, max((n for n in names if n.startswith("checkpoint_")),
                                      key=lambda n: int(n.split("_")[2])))
-    resumed = Trainer(cfg.replace(resume=last), *loaders(cfg))
+    resumed = Trainer(cfg.replace(resume=last), *loaders(cfg, None))
     resumed.init_state()
     batch = batch_to_device(next(iter(make_data_loader(cfg, "val", TRAIN_BATCH))),
                             torch.device("cuda"))
@@ -1547,6 +1624,16 @@ def phase_trainer(out_dir):
     differing = [k for k in sa if not torch.equal(sa[k], sb[k])]
     resume_equal = (resumed.start_epoch == cfg.max_epoch + 1 and resumed.state.step == n_train + 1
                     and torch.equal(la, lb) and sa.keys() == sb.keys() and not differing)
+    # the trainer's own step (the grid builder) on that one batch again and
+    # again, on the resumed state, which nothing reads after: what a step
+    # costs with no loader beside it and no new batch shapes
+    repeated_ms = []
+    for _ in range(REPEATED_WARM + REPEATED_STEPS):
+        t = time.perf_counter()
+        step(resumed.state, batch, resumed.generator)
+        torch.cuda.synchronize()
+        repeated_ms.append((time.perf_counter() - t) * 1e3)
+    repeated_ms = repeated_ms[REPEATED_WARM:]
 
     emit({"phase": "trainer", "model": cfg.model, "compute_dtype": cfg.compute_dtype,
           "use_grid_maps": cfg.use_grid_maps, "batch_pairs": cfg.batch_size,
@@ -1565,7 +1652,16 @@ def phase_trainer(out_dir):
           "best_val_epoch": trainer.best_val_epoch, "checkpoints": names,
           "resume": {"checkpoint": os.path.basename(last), "next_step_bit_equal": resume_equal,
                      "loss": [float(la), float(lb)], "tensors": len(sa),
-                     "differing": differing[:5]}})
+                     "differing": differing[:5]},
+          "nvidia_smi": DEVICE["nvidia_smi"], "loader_runs": rates,
+          "repeated_batch_step_ms": {"steps": REPEATED_STEPS,
+                                     "median": float(np.median(repeated_ms)),
+                                     "min": min(repeated_ms), "max": max(repeated_ms)},
+          "workers_1_vs_0": {"first_epoch_steps": n_first, "bit_equal": first_equal,
+                                         "losses_equal": losses_equal,
+                                         "states_max_rel_err": states_gap},
+          "loader_workers_alive": {"after_the_run": alive_after_run,
+                                   "after_the_phase": loader_workers_alive()}})
     if len(losses) != n_train or not np.isfinite(losses).all():
         raise AssertionError(f"trainer: a loss is missing or not finite: {losses}")
     if not ep[-1]["mean_loss"] < ep[0]["mean_loss"]:
@@ -1581,6 +1677,12 @@ def phase_trainer(out_dir):
     if not resume_equal:
         raise AssertionError(f"trainer: the resumed state's next step differs: {differing[:5]}, "
                              f"loss {float(la)} vs {float(lb)}")
+    if not first_equal:
+        raise AssertionError(f"trainer: the run with workers=1 differs from workers=0: "
+                             f"losses equal {losses_equal}, states {states_gap}")
+    if alive_after_run or loader_workers_alive():
+        raise AssertionError(f"trainer: loader workers outlive the run: {alive_after_run}, "
+                             f"{loader_workers_alive()}")
     trainer.writer.close()
     resumed.writer.close()
     return launches, {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
@@ -2787,6 +2889,8 @@ SHARED_CARD = ["cuda:0", "cuda:0"]   # two ranks on the one card, over gloo
 # the DP trainer run: 4 batches of 2 pairs, 2 steps a rank an epoch, one
 # validation pair an epoch; 50 000 points a fragment keep the loader short
 DP_TRAINER_RUN = dict(synthetic_length=8, synthetic_n_points=50_000, val_max_iter=1)
+# fault 4's run: 4 batches of 2 pairs, 2 steps a rank, rank 1 rejecting a pair
+REJECTING_RUN = dict(synthetic_length=8, synthetic_n_points=50_000, max_epoch=1)
 BUILDERS = ("search", "packed", "banded", "ywide", "transpose")
 BUILDER_ROUNDS = 5
 
@@ -2895,16 +2999,18 @@ def phase_dp_one_rank(cfg, batch):
 
 def dp_rank_calls(cfg, ctx, out_dir):
     """The ranks' data-parallel calls: DP_STEPS steps, then the DP
-    trainer's two epochs against one, a checkpoint and a resume."""
+    trainer's two epochs against one, a checkpoint and a resume, each with
+    its loaders in threads (a worker's start would outweigh 2-step
+    epochs; the rejecting run takes the card's worker)."""
     base = bench_config().replace(
         batch_size=TRAIN_BATCH, val_batch_size=1, dataset="SyntheticPairDataset",
         max_points=TRAIN_N_PAD, stat_freq=1, data_parallel=2, **DP_TRAINER_RUN)
     first = base.replace(out_dir=os.path.join(out_dir, "split"), max_epoch=1)
     return [(dp.run_dp_steps, (cfg, ctx["start"], ctx["groups"], "search", 100)),
             (dp.run_trainer, (base.replace(out_dir=os.path.join(out_dir, "whole"), max_epoch=2),
-                              None, True)),
-            (dp.run_trainer, (first, None, False)),
-            (dp.run_trainer, (first.replace(max_epoch=2), None, True, first.out_dir))]
+                              None, True, None, 0)),
+            (dp.run_trainer, (first, None, False, None, 0)),
+            (dp.run_trainer, (first.replace(max_epoch=2), None, True, first.out_dir, 0))]
 
 
 def phase_dp(cfg, ctx, ranks, spawn_s, names):
@@ -3086,6 +3192,72 @@ def phase_sharded(root, one, two, spawn_s):
             "eval_kitti": ek["two_ranks"]["launches"]}
 
 
+class RejectingPairs(SyntheticPairDataset):
+    """Synthetic pairs, of which those in ``reject`` are rejected as a
+    KITTI dataset rejects a pair with too few ground-truth matches."""
+
+    def __init__(self, phase, config, reject=(), **kw):
+        super().__init__(phase, config, **kw)
+        self.reject = set(reject)
+
+    def __getitem__(self, idx):
+        if idx in self.reject:
+            raise ValueError(f"pair {idx} rejected")
+        return super().__getitem__(idx)
+
+
+def run_rejecting_trainer(mesh, config, reject):
+    """Rank function: ``Trainer.train()`` on the rank's shard of a train
+    split whose dataset rejects the pairs in ``reject[rank]`` (the loader of
+    the card's default, a worker process). Returns the rank's optimizer
+    steps, steps an epoch, rejections and the pairs of each batch it took."""
+    loader = make_data_loader(config, "train", config.batch_size, device=mesh.device)
+    loader.dataset = RejectingPairs("train", config, reject=reject[mesh.rank])
+    loader.dataset.reset_seed(config.seed)
+    trainer = Trainer(config, loader, None, mesh=mesh)
+    pairs, take = [], trainer._next_batch
+
+    def next_batch(it):
+        batch = take(it)
+        pairs.append(int(batch.T_gt.shape[0]))
+        return batch
+
+    trainer._next_batch = next_batch
+    trainer.train()
+    return {"steps": trainer.state.step, "steps_per_epoch": len(loader),
+            "rejected": loader.skip_count, "workers": loader.workers, "batch_pairs": pairs}
+
+
+def rejecting_call(out_dir):
+    """The ranks' run of fault 4: REJECTING_RUN on two ranks, rank 1's
+    dataset rejecting both pairs of its first batch, so that a loader that
+    only skipped them would leave rank 1 a batch short of rank 0."""
+    cfg = bench_config().replace(
+        batch_size=TRAIN_BATCH, dataset="SyntheticPairDataset", max_points=TRAIN_N_PAD,
+        data_parallel=2, out_dir=out_dir, **REJECTING_RUN)
+    order = np.random.RandomState(cfg.seed).permutation(cfg.synthetic_length)
+    # rank 1 of 2 takes batch 1 first: places batch_size .. 2 batch_size - 1
+    reject = {0: (), 1: tuple(int(i) for i in order[cfg.batch_size:2 * cfg.batch_size])}
+    return (run_rejecting_trainer, (cfg, reject)), reject
+
+
+def phase_rejecting_ranks(results, reject):
+    """Fault 4 on two ranks (``results``: each rank's ``run_rejecting_trainer``
+    result): the run ended, with both ranks at their loader's steps an
+    epoch times the epochs, every batch either took full, and rank 1's
+    rejections counted."""
+    epochs = REJECTING_RUN["max_epoch"]
+    entry = {"phase": "rejecting_ranks", "devices": SHARED_CARD, **REJECTING_RUN,
+             "rejected_pairs": reject, "ranks": results}
+    emit(entry)
+    steps = [r["steps"] for r in results]
+    if (steps[0] != steps[1] or any(r["steps"] != r["steps_per_epoch"] * epochs for r in results)
+            or results[1]["rejected"] < len(reject[1]) or results[0]["rejected"] != 0
+            or any(p != TRAIN_BATCH for r in results for p in r["batch_pairs"])):
+        raise AssertionError(f"rejecting_ranks: {results}")
+    return entry
+
+
 def phase_ranks(cfg, ctx):
     """Every path of two ranks sharing the card over gloo, in one pair of
     new processes (``dp.run_calls``): the ``dp_rank_calls``, then the
@@ -3098,9 +3270,10 @@ def phase_ranks(cfg, ctx):
         try:
             dp_calls = dp_rank_calls(cfg, ctx, os.path.join(root, "dp_trainer"))
             one = [(dp.solo, c) for c in calls("one_rank")]
+            rejecting, reject = rejecting_call(os.path.join(root, "rejecting"))
             t = time.perf_counter()
             ranks = spawn_ranks(dp.run_calls, SHARED_CARD,
-                                (dp_calls + one + calls("two_ranks"),))
+                                (dp_calls + one + calls("two_ranks") + [rejecting],))
             spawn_s = time.perf_counter() - t
         finally:
             KITTIPairDataset.DATA_FILES.clear()
@@ -3110,7 +3283,8 @@ def phase_ranks(cfg, ctx):
         n, m = len(dp_calls), len(dp_calls) + len(one)
         dp_launches = phase_dp(cfg, ctx, [r[:n] for r in ranks], spawn_s, names)
         sharded_launches = phase_sharded(os.path.join(root, "sharded"), [ranks[0][n:m]],
-                                         [r[m:] for r in ranks], spawn_s)
+                                         [r[m:-1] for r in ranks], spawn_s)
+        phase_rejecting_ranks([r[-1][0] for r in ranks], reject)
     return dp_launches, sharded_launches
 
 

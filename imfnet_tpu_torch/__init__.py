@@ -11,3 +11,7 @@ Entry points (``pipeline.PairRegistrar``) run on the card unless the caller
 passes ``device="cpu"``; kernel wrappers launch their kernel for a CUDA
 tensor and run the kernel's plain PyTorch version for a CPU tensor.
 """
+
+__version__ = "0.1.0"
+
+from imfnet_tpu_torch.config import Config, kitti_config, threedmatch_config  # noqa: F401,E402

@@ -188,8 +188,11 @@ def _eval_kitti(args, device, mesh=None):
     if args.kitti_root:
         config = config.replace(kitti_root=args.kitti_root)
     loader = make_data_loader(config, "test", 1, shuffle=False, device=device)
-    return evaluate_kitti(model, config, loader,
-                          num_devices=1 if mesh is None else mesh.world_size, mesh=mesh)
+    try:
+        return evaluate_kitti(model, config, loader,
+                              num_devices=1 if mesh is None else mesh.world_size, mesh=mesh)
+    finally:
+        loader.close()
 
 
 def _split_lists():

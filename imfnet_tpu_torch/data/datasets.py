@@ -11,7 +11,9 @@ Host-side mirror of `lib/data_loaders.py`:
   time difference or >=10 m apart, ground truth from the odometry poses and
   velo2cam, refined by ICP (``match.icp``, on the device) and cached to .npy.
 - make_data_loader (:730-772): shuffling iterator producing padded
-  PairBatch with a background prefetch thread (replaces worker processes).
+  PairBatch, prefetched by a thread (the JAX package's design) or, where the
+  loader feeds a card, by one worker process (the reference's DataLoader
+  has worker processes).
 
 Everything here is numpy and draws from ``RandomState`` streams in the JAX
 package's order, so the same seed gives the same samples and batches. The
@@ -24,15 +26,20 @@ from __future__ import annotations
 import copy
 import glob
 import logging
+import multiprocessing
 import os
 import pathlib
+import pickle
 import queue
 import threading
-from typing import List, Optional
+import traceback
+import weakref
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from imfnet_tpu_torch.config import Config
 from imfnet_tpu_torch.data.collate import VoxelizedPair, collate_pairs, voxelize_np
@@ -446,17 +453,228 @@ def dataset_class(name: str):
     return dataset_str_mapping[name]
 
 
+# A sharded training loader replaces a rejected sample; a batch raises after
+# this many rejections per pair it holds.
+REPLACE_TRIES_PER_SLOT = 10
+# how often a waiting side of the worker process looks whether the other
+# side left: a stopped consumer, a dead worker, a dead parent (s)
+_POLL_S = 0.1
+# PairLoader.close(): how long the worker gets to leave, then after terminate()
+_JOIN_S = 5.0
+# how long a failed read waits to see whether the worker has died
+_DEATH_S = 1.0
+
+
+class _Epoch(NamedTuple):
+    """What the producer needs of one epoch, drawn in the consumer's
+    process: the shuffled order and the batches this loader keeps."""
+
+    idx: np.ndarray         # the epoch's permutation of the dataset's indices
+    plan: list              # (b, dataset indices of batch b), in order
+    n_pad: int
+    grid_extent: Optional[tuple]
+    replace: bool           # replace a rejected sample (sharded training loader)
+    seed: int
+
+
+def _replacement(epoch: _Epoch, b: int, slot: int, tries: int) -> int:
+    """The dataset index that takes the place of a rejected sample: a place
+    in the epoch's order drawn from (seed, batch, slot, try) alone, so that
+    no stream moves and a resumed run draws the same."""
+    j = np.random.SeedSequence([epoch.seed, b, slot, tries]).generate_state(1)[0]
+    return int(epoch.idx[int(j) % len(epoch.idx)])
+
+
+def _load_batch(dataset, epoch: _Epoch, b: int, sel, on_skip: Callable[[], int]) -> list:
+    """The samples of batch ``b`` (dataset indices ``sel``). A sample that
+    the dataset rejects with ``ValueError`` is skipped, or, with
+    ``epoch.replace``, replaced by ``_replacement`` draws until one is
+    accepted. ``on_skip()`` counts each rejection and returns the count."""
+    samples, rejected = [], []
+    for slot, i in enumerate(sel):
+        i, tries = int(i), 0
+        while True:
+            try:
+                samples.append(dataset[i])
+                break
+            except ValueError as e:
+                # skippable pair (e.g. KITTI <1000 matches,
+                # `scripts/evaluation_kitti.py:66-70`)
+                rejected.append(i)
+                logging.warning("skipping pair %d (%s); %d skipped so far", i, e, on_skip())
+                if not epoch.replace:
+                    break
+                if len(rejected) >= REPLACE_TRIES_PER_SLOT * len(sel):
+                    raise RuntimeError(f"batch {b}: the dataset rejected every sample tried, "
+                                       f"{len(rejected)} in all: {rejected}") from e
+                tries += 1
+                i = _replacement(epoch, b, slot, tries)
+    return samples
+
+
+def _produce(dataset, epoch: _Epoch, on_skip: Callable[[], int],
+             stopped: Callable[[], bool]):
+    """Yields ``(b, batch)`` for the batches of the epoch's plan, host
+    tensors, until ``stopped()``; a batch whose every sample the dataset
+    rejected is left out."""
+    for b, sel in epoch.plan:
+        if stopped():
+            return
+        samples = _load_batch(dataset, epoch, b, sel, on_skip)
+        if samples:
+            yield b, collate_pairs(samples, epoch.n_pad, grid_extent=epoch.grid_extent,
+                                   device="cpu")
+
+
+def _stream_state(rng: Optional[np.random.RandomState]):
+    return None if rng is None else rng.get_state()
+
+
+def _portable(e: BaseException) -> BaseException:
+    """``e`` with the worker's traceback as a note, or, where it does not
+    pickle, a RuntimeError that says what it was."""
+    e.add_note("raised in the loader's worker process:\n" + "".join(
+        traceback.format_exception(e)))
+    try:
+        pickle.dumps(e)
+        return e
+    except Exception:
+        return RuntimeError(f"{type(e).__name__}: {e}\n{e.__notes__[-1]}")
+
+
+def _worker_main(dataset, tasks, results, cancel) -> None:
+    """The worker process of ``PairLoader(workers=1)``. Each task is one
+    epoch, ``(n, _Epoch, the augmentation stream's state)``, or None to
+    leave. Puts ``(kind, n, b, payload, stream state, rejections so far)``:
+    a "batch" with the stream's state after it was drawn, then an "end", or
+    an "error" with the exception. An epoch ``n`` is abandoned once
+    ``cancel.value >= n``; the process leaves when its parent has died."""
+    torch.set_num_threads(1)
+    parent = multiprocessing.parent_process()
+
+    def parent_gone() -> bool:
+        return parent is not None and not parent.is_alive()
+
+    results.cancel_join_thread()   # leaving never waits for a reader that is gone
+    rng = getattr(dataset, "randg", None)
+    while True:
+        try:
+            task = tasks.get(timeout=_POLL_S)
+        except queue.Empty:
+            if parent_gone():
+                return
+            continue
+        if task is None:
+            return
+        n, epoch, state = task
+        if state is not None:
+            rng.set_state(state)
+        skips = 0
+
+        def on_skip() -> int:
+            nonlocal skips
+            skips += 1
+            return skips
+
+        def abandoned() -> bool:
+            return cancel.value >= n or parent_gone()
+
+        def put(kind, b=None, payload=None, state=None) -> bool:
+            while not abandoned():
+                try:
+                    results.put((kind, n, b, payload, state, skips), timeout=_POLL_S)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        try:
+            for b, batch in _produce(dataset, epoch, on_skip, abandoned):
+                if not put("batch", b, batch, _stream_state(rng)):
+                    break
+            else:
+                put("end", state=_stream_state(rng))
+        except Exception as e:
+            put("error", payload=_portable(e))
+
+
+def _stop_worker(proc, tasks, results, cancel) -> None:
+    """Asks the worker to leave, then terminates it, then kills it, each
+    wait bounded by _JOIN_S."""
+    cancel.value = np.iinfo(np.int64).max       # abandons whatever it produces
+    tasks.put(None)
+    proc.join(_JOIN_S)
+    for end in (proc.terminate, proc.kill):
+        if proc.is_alive():
+            end()
+            proc.join(_JOIN_S)
+    for q in (tasks, results):
+        q.cancel_join_thread()
+        q.close()
+
+
+class _Worker:
+    """The producer of a ``PairLoader(workers=1)``: one persistent process
+    (start method ``spawn``: a forked child of a process that has touched
+    CUDA is unsafe) that is given the dataset once and an epoch a task, and
+    sends batches back through a queue of ``prefetch`` places (tensors in
+    shared memory). Stopped by ``close()`` or when the loader is collected."""
+
+    def __init__(self, loader: "PairLoader"):
+        ctx = mp.get_context("spawn")
+        self.tasks = ctx.Queue()
+        self.results = ctx.Queue(maxsize=loader.prefetch)
+        # epochs up to this number are abandoned; no lock, so that a worker
+        # killed at any moment cannot leave it held
+        self.cancel = ctx.Value("q", 0, lock=False)
+        self.proc = ctx.Process(target=_worker_main, name="PairLoader worker", daemon=True,
+                                args=(loader.dataset, self.tasks, self.results, self.cancel))
+        self.proc.start()
+        self.close = weakref.finalize(loader, _stop_worker, self.proc, self.tasks,
+                                      self.results, self.cancel)
+
+    def get(self):
+        """The next message; raises once the process has died."""
+        while True:
+            try:
+                return self.results.get(timeout=_POLL_S)
+            except queue.Empty:
+                if not self.proc.is_alive():
+                    raise RuntimeError(f"the loader's worker process died (exit code "
+                                       f"{self.proc.exitcode})") from None
+            except Exception as e:      # a batch whose sender died as it was sent
+                self.proc.join(_DEATH_S)  # a killed process is reaped a moment later
+                if self.proc.is_alive():
+                    raise
+                raise RuntimeError(f"the loader's worker process died (exit code "
+                                   f"{self.proc.exitcode})") from e
+
+
 class PairLoader:
     """Iterable over padded PairBatch (host tensors) with background
-    prefetch (`make_data_loader` contract, `lib/data_loaders.py:730-772`)."""
+    prefetch (`make_data_loader` contract, `lib/data_loaders.py:730-772`).
+
+    ``workers=0`` produces the batches in a thread, as the JAX package does;
+    ``workers=1`` in one persistent worker process (``_Worker``), which
+    keeps the GIL free for the consumer's launches. The batches are the
+    same: the shuffle permutation is drawn here and sent with the epoch, and
+    the dataset's augmentation stream (``dataset.randg``) lives in the
+    worker, goes to it at each epoch's start and comes back with each batch.
+    When an epoch's iterator ends or is closed, ``dataset.randg`` here
+    holds the state after the last batch the consumer took (the end of the
+    epoch's draws where it ran to the end)."""
 
     def __init__(self, dataset, batch_size: int, n_pad: int, shuffle=True,
                  seed=0, prefetch: int = 2, drop_last=True,
-                 grid_extent=None, shard=None):
+                 grid_extent=None, shard=None, workers: int = 0):
+        if workers not in (0, 1):
+            raise ValueError(f"PairLoader: workers is 0 (a thread) or 1 (a process), "
+                             f"not {workers}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.n_pad = n_pad
         self.shuffle = shuffle
+        self.seed = seed
         self.rng = np.random.RandomState(seed)
         self.prefetch = prefetch
         self.drop_last = drop_last
@@ -467,14 +685,19 @@ class PairLoader:
         # processes, so the union over processes at each global step equals
         # the single-process epoch. Identical epoch seed on every process
         # keeps the permutations aligned. With drop_last (training) only
-        # complete rounds (one group per rank) are kept: a ragged tail would
-        # give ranks unequal batch counts, and the rank with the extra group
-        # would enter the gradient all-reduce alone and deadlock the job.
-        # Without it (evaluation, no collective per batch) the tail is kept.
+        # complete rounds (one group per rank) are kept, and a sample the
+        # dataset rejects is replaced (``_replacement``): a ragged tail or a
+        # short batch would give ranks unequal batch counts, and the rank
+        # with the extra batch would enter the gradient all-reduce alone.
+        # Without it (evaluation, no collective per batch) the tail is kept
+        # and a rejected sample is skipped, as in the reference.
         self.shard = shard
         # samples dropped by ValueError (e.g. KITTI <1000-GT-match rejection,
         # `lib/data_loaders.py:588`); reset each __iter__
         self.skip_count = 0
+        self.workers = workers
+        self._worker: Optional[_Worker] = None   # started by the first epoch
+        self._epochs = 0
 
     def _total_batches(self):
         n = len(self.dataset)
@@ -507,6 +730,7 @@ class PairLoader:
         out.rng = np.random.RandomState()
         out.rng.set_state(self.rng.get_state())
         out.shard, out.drop_last, out.skip_count = (rank, world, 1), False, 0
+        out._worker, out._epochs = None, 0
         return out
 
     def _epoch_indices(self):
@@ -515,6 +739,19 @@ class PairLoader:
             self.rng.shuffle(idx)
         return idx
 
+    def _epoch(self) -> _Epoch:
+        idx = self._epoch_indices()
+        plan = []
+        for b in range(self._total_batches()):
+            if not self._keep_batch(b):
+                continue
+            sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            if len(sel) < self.batch_size and self.drop_last:
+                break
+            plan.append((b, sel))
+        return _Epoch(idx, plan, self.n_pad, self.grid_extent,
+                      self.shard is not None and self.drop_last, self.seed)
+
     def __iter__(self):
         return (batch for _, batch in self.numbered())
 
@@ -522,6 +759,20 @@ class PairLoader:
         """Iterates ``(b, batch)``: ``b`` is the batch's place in the
         epoch's order, counting the batches the dataset rejected."""
         self.skip_count = 0
+        epoch = self._epoch()
+        if self.workers:
+            yield from self._from_process(epoch)
+        else:
+            yield from self._from_thread(epoch)
+
+    def close(self) -> None:
+        """Stops the worker process, if one runs; a later epoch starts a
+        new one."""
+        w, self._worker = self._worker, None
+        if w is not None:
+            w.close()
+
+    def _from_thread(self, epoch: _Epoch):
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = object()
         abandoned = threading.Event()   # the consumer left before the epoch's end
@@ -529,38 +780,20 @@ class PairLoader:
         def put(item) -> bool:
             while not abandoned.is_set():
                 try:
-                    q.put(item, timeout=0.1)
+                    q.put(item, timeout=_POLL_S)
                     return True
                 except queue.Full:
                     pass
             return False
 
+        def on_skip() -> int:
+            self.skip_count += 1
+            return self.skip_count
+
         def producer():
             try:
-                idx = self._epoch_indices()
-                for b in range(self._total_batches()):
-                    if abandoned.is_set():
-                        return
-                    if not self._keep_batch(b):
-                        continue
-                    sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
-                    if len(sel) < self.batch_size and self.drop_last:
-                        break
-                    samples = []
-                    for i in sel:
-                        try:
-                            samples.append(self.dataset[int(i)])
-                        except ValueError as e:
-                            # skippable pair (e.g. KITTI <1000 matches,
-                            # `scripts/evaluation_kitti.py:66-70`)
-                            self.skip_count += 1
-                            logging.warning(
-                                "skipping pair %d (%s); %d skipped so far",
-                                int(i), e, self.skip_count)
-                            continue
-                    if samples and not put((b, collate_pairs(
-                            samples, self.n_pad, grid_extent=self.grid_extent,
-                            device="cpu"))):
+                for item in _produce(self.dataset, epoch, on_skip, abandoned.is_set):
+                    if not put(item):
                         return
             except BaseException as e:  # surface in the consumer thread —
                 put(e)                  # a silent stop would truncate epochs
@@ -571,7 +804,13 @@ class PairLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                try:
+                    item = q.get(timeout=_POLL_S)
+                except queue.Empty:
+                    if t.is_alive() or not q.empty():
+                        continue
+                    raise RuntimeError("the loader's producer thread ended without "
+                                       "finishing its epoch") from None
                 if item is stop:
                     break
                 if isinstance(item, BaseException):
@@ -582,13 +821,47 @@ class PairLoader:
             # the producer, which would otherwise wait on the full queue
             abandoned.set()
 
+    def _from_process(self, epoch: _Epoch):
+        if self._worker is None or not self._worker.proc.is_alive():
+            self.close()
+            self._worker = _Worker(self)
+        w = self._worker
+        self._epochs += 1
+        n = self._epochs
+        rng = getattr(self.dataset, "randg", None)
+        state = _stream_state(rng)
+        w.tasks.put((n, epoch, state))
+        ended = False
+        try:
+            while True:
+                kind, m, b, payload, batch_state, skips = w.get()
+                if m != n:
+                    continue    # left over from an epoch that was abandoned
+                self.skip_count = skips
+                if kind == "error":
+                    raise payload
+                state = batch_state
+                if kind == "end":
+                    ended = True
+                    break
+                yield b, payload
+        finally:
+            if not ended:
+                w.cancel.value = n      # releases the worker at once
+            if rng is not None:
+                rng.set_state(state)
+
 
 def make_data_loader(config: Config, phase: str, batch_size: int,
-                     shuffle: Optional[bool] = None, device=None) -> PairLoader:
+                     shuffle: Optional[bool] = None, device=None,
+                     workers: Optional[int] = None) -> PairLoader:
     """The config's dataset for ``phase`` behind a PairLoader. ``device``
-    is where a KITTI dataset refines uncached ground truth (default the
-    card). In a process group of several ranks the train split is sharded
-    over them."""
+    is where a KITTI dataset refines uncached ground truth and where the
+    batches go (default the card). ``workers`` is the loader's (0 a thread,
+    1 a worker process); None takes 1 for the training split where it feeds
+    a card, else 0: validation and test loaders are short and stopped early,
+    and a worker's start would outweigh what it saves them. In a process
+    group of several ranks the train split is sharded over them."""
     if phase not in ("train", "trainval", "val", "test"):
         raise ValueError(f"unknown phase {phase!r}")
     if shuffle is None:
@@ -620,8 +893,13 @@ def make_data_loader(config: Config, phase: str, batch_size: int,
     shard = None
     if phase in ("train", "trainval") and dist.is_initialized() and dist.get_world_size() > 1:
         shard = (dist.get_rank(), dist.get_world_size(), 1)
+    if workers is None:
+        # a loader thread holds the GIL that the training step's launches need
+        feeds_card = (torch.cuda.is_available() if device is None
+                      else torch.device(device).type == "cuda")
+        workers = int(feeds_card and phase in ("train", "trainval"))
     return PairLoader(dset, batch_size, config.max_points, shuffle=shuffle,
-                      seed=config.seed, shard=shard,
+                      seed=config.seed, shard=shard, workers=workers,
                       grid_extent=(tuple(config.grid_extent)
                                    if config.use_grid_maps else None))
 

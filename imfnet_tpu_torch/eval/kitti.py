@@ -116,6 +116,7 @@ def evaluate_kitti(model: torch.nn.Module, config: Config, loader,
         feat_timer.tic()
         done = make_parallel_kitti_eval(model, config, mesh, keep)(loader.numbered())
         feat_timer.toc()
+        loader.close()          # this rank's copy: stops its worker process
         skipped = sum(all_gather(mesh, loader.skip_count))
         reg_timer.tic()
         for i, out in done:

@@ -362,10 +362,11 @@ def call_counted(mesh: Mesh, fn: Callable, args: tuple = (), warm_args: Optional
 
 
 def run_trainer(mesh: Mesh, config: Config, device=None, return_state: bool = False,
-                resume_dir: Optional[str] = None):
+                resume_dir: Optional[str] = None, workers: Optional[int] = None):
     """Rank function: ``Trainer.train()`` on this rank (the train loader
     sharded over the ranks, validation whole on each), the config's
-    ``resume`` included, or the last checkpoint under ``resume_dir``. With
+    ``resume`` included, or the last checkpoint under ``resume_dir``.
+    ``workers`` is the train loader's (``make_data_loader``). With
     ``return_state``, returns the trained state's tensors
     (``train_state_arrays``), its step count, and this rank's kernel
     launches in its training and in its validation epochs with the steps of
@@ -377,7 +378,8 @@ def run_trainer(mesh: Mesh, config: Config, device=None, return_state: bool = Fa
     if resume_dir is not None:
         config = config.replace(resume=last_checkpoint(resume_dir))
     device = mesh.device if device is None else device
-    train_loader = make_data_loader(config, "train", config.batch_size, device=device)
+    train_loader = make_data_loader(config, "train", config.batch_size, device=device,
+                                    workers=workers)
     val_loader = make_data_loader(config, "val", config.val_batch_size, device=device)
     trainer = Trainer(config, train_loader, val_loader, mesh=mesh)
     trainer.init_state()

@@ -15,6 +15,7 @@ never turns into gloo.
 """
 from __future__ import annotations
 
+import datetime
 import logging
 import os
 import shutil
@@ -25,6 +26,22 @@ import torch
 import torch.distributed as dist
 
 DP_AXIS = "dp"
+# A collective that waits longer than this raises: far above a step or a
+# checkpoint's gather, so that a rank that fell out of step fails loud
+# instead of leaving the others in the all-reduce for good.
+PROCESS_GROUP_TIMEOUT = datetime.timedelta(minutes=10)
+
+
+def _init_process_group(backend: str, **kw) -> None:
+    """``dist.init_process_group`` with PROCESS_GROUP_TIMEOUT. Gloo raises
+    in the collective that times out. NCCL acts on the timeout only with
+    asynchronous error handling on: torch 2.2 and later read an unset
+    TORCH_NCCL_ASYNC_ERROR_HANDLING as 3 (the watchdog aborts the
+    communicator and ends the process), and a 0 would leave a timed-out
+    collective waiting, so 0 and unset are set to 3 here."""
+    if backend == "nccl" and os.environ.get("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0") == "0":
+        os.environ["TORCH_NCCL_ASYNC_ERROR_HANDLING"] = "3"
+    dist.init_process_group(backend, timeout=PROCESS_GROUP_TIMEOUT, **kw)
 
 
 class Mesh(NamedTuple):
@@ -62,8 +79,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     if coordinator_address is None:
         raise ValueError("initialize_distributed: more than one process needs a coordinator")
     url = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
-    dist.init_process_group(backend, init_method=url, world_size=num_processes,
-                            rank=process_id)
+    _init_process_group(backend, init_method=url, world_size=num_processes, rank=process_id)
 
 
 def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = None, *,
@@ -97,7 +113,7 @@ def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = Non
             if world != 1:
                 raise ValueError(f"make_mesh: {world} ranks need an init_method "
                                  f"(spawn_ranks passes one)")
-            dist.init_process_group(backend, store=dist.HashStore(), world_size=1, rank=0)
+            _init_process_group(backend, store=dist.HashStore(), world_size=1, rank=0)
     if dist.get_world_size() != world:
         raise ValueError(f"make_mesh: the process group has {dist.get_world_size()} ranks, "
                          f"the device list {world}")

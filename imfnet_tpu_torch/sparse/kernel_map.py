@@ -49,6 +49,33 @@ def offset_map(out_coords: torch.Tensor, out_valid: torch.Tensor,
     return lookup(table, keys).reshape(out_coords.shape[0], len(offsets))
 
 
+def kernel_map_same(coords: torch.Tensor, valid: torch.Tensor, kernel_size: int,
+                    tensor_stride: int) -> torch.Tensor:
+    """Map for a stride-1 conv: outputs are the inputs, offsets in units of
+    the tensor stride (`MinkowskiConvolution(kernel_size=k, stride=1)`)."""
+    return offset_map(coords, valid, coords, valid, kernel_offsets(kernel_size) * tensor_stride)
+
+
+def kernel_map_down(in_coords: torch.Tensor, in_valid: torch.Tensor,
+                    out_coords: torch.Tensor, out_valid: torch.Tensor, kernel_size: int,
+                    in_tensor_stride: int) -> torch.Tensor:
+    """Map for a stride-2 downsampling conv (t → 2t): each output coordinate
+    (a multiple of 2t) gathers the inputs at out + δ·t, δ centered."""
+    return offset_map(out_coords, out_valid, in_coords, in_valid,
+                      kernel_offsets(kernel_size) * in_tensor_stride)
+
+
+def kernel_map_up(in_coords: torch.Tensor, in_valid: torch.Tensor,
+                  out_coords: torch.Tensor, out_valid: torch.Tensor, kernel_size: int,
+                  out_tensor_stride: int) -> torch.Tensor:
+    """Map for a stride-2 transpose conv (2t → t): the outputs are the
+    cached finer level's coordinates, each gathering the inputs among
+    out + δ·t that exist at stride 2t (`MinkowskiConvolutionTranspose`,
+    `model/resunet.py:101-139`)."""
+    return offset_map(out_coords, out_valid, in_coords, in_valid,
+                      kernel_offsets(kernel_size) * out_tensor_stride)
+
+
 class LevelMaps(NamedTuple):
     """Kernel maps and coordinate metadata for one UNet resolution level."""
 

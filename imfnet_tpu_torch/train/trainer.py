@@ -98,8 +98,9 @@ def batch_to_device(batch: PairBatch, device: torch.device) -> PairBatch:
 
 
 def _close(it) -> None:
-    """Ends a loader's iterator early, which releases its producer thread;
-    a plain iterator has nothing to close."""
+    """Ends a loader's iterator early, which releases its producer, or
+    stops a loader's worker process; a plain iterable has nothing to
+    close."""
     close = getattr(it, "close", None)
     if close is not None:
         close()
@@ -267,6 +268,15 @@ class Trainer:
 
     # -- epochs -------------------------------------------------------------
     def train(self):
+        """The epochs from ``start_epoch`` on; closes the loaders at the
+        end, which stops their worker processes."""
+        try:
+            self._train()
+        finally:
+            _close(self.data_loader)
+            _close(self.val_data_loader)
+
+    def _train(self):
         config = self.config
         if self.state is None:
             self.init_state()

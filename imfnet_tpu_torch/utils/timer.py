@@ -5,10 +5,13 @@ train/eval loops, a min-of-runs timer for benchmarks) with one streaming
 statistics class — count/mean/variance/min/max in a single `add` — and a
 stopwatch wrapping it. These are host clocks: a lap around device work is the
 time to enqueue it unless the lap ends in a read or a synchronize.
+``device_trace`` records a profiler trace of a block of code.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 import time
 
 
@@ -124,3 +127,20 @@ class AverageMeter(Meter):
 class MinTimer(Timer):
     """Stopwatch whose headline number is the fastest lap (benchmarks)."""
     # `.min` is inherited from Meter
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str):
+    """``torch.profiler`` trace of the block (the counterpart of the JAX
+    package's ``jax.profiler`` trace): host activity, and the card's where
+    there is one, written on exit as one Chrome trace file under
+    ``logdir``. Yields the profiler."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -16,7 +16,8 @@ The reference's layout differs from the port's in three ways:
   (``cross_attn.to_q``).
 Linear and 2-D conv weights are PyTorch's own layout on both sides and are
 copied as they are. Renaming the keys of a port checkpoint is
-``train.checkpoint.migrate_checkpoint_keys``.
+``migrate_checkpoint_keys`` (``train.checkpoint``'s, re-exported here where
+the JAX package has it).
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from imfnet_tpu_torch.train.checkpoint import migrate_checkpoint_keys  # noqa: F401
 
 TRUNK_BLOCKS = ((1, 3), (2, 4))   # (layer, blocks) kept by the truncated trunk
 

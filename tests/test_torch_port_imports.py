@@ -20,15 +20,49 @@ def _port_sources():
 
 
 def test_import_every_submodule_loads_no_jax():
+    """Nor triton, and no module touches the card when it is imported (a
+    kernel is built, and triton imported, inside its launching function)."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "import torch\n"
         "import imfnet_tpu_torch\n"
         "for m in pkgutil.walk_packages(imfnet_tpu_torch.__path__, "
         "'imfnet_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        f"{FORBIDDEN!r})\n"
+        f"{FORBIDDEN + ('triton',)!r})\n"
         "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_each_package_imports_first_without_a_cycle():
+    """The packages' ``__init__``s re-export from their modules (1.15).
+    Each package is imported first into a process that has no module of the
+    port yet (the port's modules are dropped between packages), as
+    ``python -c "import imfnet_tpu_torch.<package>"`` would, and then all
+    of them in one statement."""
+    packages = sorted(".".join(p.relative_to(REPO).parent.parts)
+                      for p in PORT.rglob("__init__.py"))
+    assert len(packages) == 11
+    code = (
+        "import importlib, sys\n"
+        "import torch\n"
+        f"for name in {packages!r}:\n"
+        "    for k in [k for k in sys.modules if k.split('.')[0] == 'imfnet_tpu_torch']:\n"
+        "        del sys.modules[k]\n"
+        "    importlib.import_module(name)\n"
+        f"import {', '.join(packages)}\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        f"{FORBIDDEN + ('triton',)!r})\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)

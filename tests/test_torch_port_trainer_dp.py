@@ -10,7 +10,9 @@
   auto (``data_parallel=0``) clamps to the loader;
 - the loader's shard partitions an epoch, ragged tail included, and
   ``make_data_loader`` shards the train split in a group of ranks;
-- a DP run resumed from its checkpoint equals the uninterrupted one."""
+- a DP run resumed from its checkpoint equals the uninterrupted one;
+- a sample that the dataset rejects on one rank does not hang the ranks
+  (fault 4: the sharded loader replaces it)."""
 import glob
 import json
 import os
@@ -31,6 +33,7 @@ from imfnet_tpu_torch.train.trainer import (Trainer, batch_to_device, build_mode
                                             resolve_data_parallel)
 
 from test_torch_port_train import _one_torch_thread  # noqa: F401
+from torch_port_rejecting import run_rejecting_trainer
 
 
 def _dp_config(out_dir, **kw):
@@ -194,20 +197,53 @@ def test_make_data_loader_shards_the_train_split_in_a_group(monkeypatch):
     assert make_data_loader(config, "test", 1).shard is None
 
 
-def test_dp_resume_equals_the_uninterrupted_run(tmp_path):
-    """Two epochs in one run against one epoch, a checkpoint, and a resume
-    for the second from the run's last checkpoint, the three runs in one
-    pair of rank processes: every rank's parameters, buffers and momentum
-    equal."""
+# fault 4: rank 1's dataset rejects these indices (rank 0's none); with
+# seed 0 and 8 pairs, rank 1 draws 7 and 0 of them in its first epoch, 7
+# and 5 in its second
+REJECTED_ON_RANK_1 = (0, 5, 7)
+
+
+@pytest.fixture(scope="module")
+def rank_runs(tmp_path_factory):
+    """One pair of rank processes for the resume runs below and fault 4's
+    run: two epochs in one run, one epoch, a checkpoint and a resume for
+    the second from the run's last checkpoint; then two epochs on a train
+    split whose dataset rejects samples on rank 1."""
+    tmp_path = tmp_path_factory.mktemp("ranks")
     first = _dp_config(tmp_path / "split", synthetic_length=4, max_epoch=1)
     calls = [(dp.run_trainer, (_dp_config(tmp_path / "whole", synthetic_length=4, max_epoch=2),
                                None, True)),
              (dp.run_trainer, (first, None, False)),
-             (dp.run_trainer, (first.replace(max_epoch=2), None, True, first.out_dir))]
-    ranks = spawn_ranks(dp.run_calls, ["cpu", "cpu"], (calls,))
+             (dp.run_trainer, (first.replace(max_epoch=2), None, True, first.out_dir)),
+             (run_rejecting_trainer, (_dp_config(tmp_path / "rejecting", synthetic_length=8,
+                                                 max_epoch=2),
+                                      {0: (), 1: REJECTED_ON_RANK_1}))]
+    return tmp_path, spawn_ranks(dp.run_calls, ["cpu", "cpu"], (calls,))
+
+
+def test_dp_resume_equals_the_uninterrupted_run(rank_runs):
+    """Two epochs in one run against one epoch, a checkpoint, and a resume
+    for the second from the run's last checkpoint, the three runs in one
+    pair of rank processes: every rank's parameters, buffers and momentum
+    equal."""
+    tmp_path, ranks = rank_runs
     whole, resumed = ([r[j][0] for r in ranks] for j in (0, 2))
     assert [r[1][0] for r in ranks] == [None, None]
     assert glob.glob(str(tmp_path / "split" / "checkpoint_epoch_1*"))
     assert [r["step"] for r in whole] == [r["step"] for r in resumed] == [4, 4]
     for r in range(2):
         _assert_equal_arrays(resumed[r], whole[r], f"rank {r}: resumed vs whole")
+
+
+def test_a_sample_rejected_on_one_rank_does_not_hang_the_ranks(rank_runs):
+    """Fault 4: rank 1's dataset rejects samples of its shard; its loader
+    draws replacements, so both ranks take len(loader) steps an epoch and
+    the run ends (before the repair rank 1 ran out of batches while rank 0
+    waited in the all-reduce)."""
+    _, ranks = rank_runs
+    (steps0, per_epoch0, skips0, pairs0), (steps1, per_epoch1, skips1, pairs1) = (
+        r[3][0] for r in ranks)
+    assert per_epoch0 == per_epoch1 == 4
+    assert steps0 == steps1 == 2 * 4
+    assert pairs0 == pairs1 == [1] * (2 * 4)
+    assert skips0 == 0 and skips1 > 0
