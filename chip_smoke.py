@@ -78,9 +78,13 @@ Phases, each printed as one JSON line:
             the full-width training batch: kernel A at the 20 dX calls of a
             backward (the forward's convs through their inverse maps, cin and
             cout swapped; tensor-core variant asserted, two calls bit-equal)
-            and at conv1 (k 125, cin 1: scalar variant), kernel B at the
+            and at conv1 (k 125, cin 1: the cin1 variant asserted, bit-equal
+            twice and dead rows exactly 0, beside the scalar variant that
+            took it before), kernel B at the
             positive search's 65 536 x 65 536 x 3 with the other pair's
-            references masked, and the plain dW products (no kernel) per step
+            references masked (its D = 3 plan, the min fold, and the sweep
+            of every min-fold tile at splits 1 and 2, the plan's choice
+            beside the best), and the plain dW products (no kernel) per step
   train_reference  one training step at a small size in f32 on the card
             against the CPU (loss, every gradient, every updated parameter
             and buffer within the stated tolerances), then 8 steps at lr
@@ -92,7 +96,7 @@ Phases, each printed as one JSON line:
             step ms, every loss finite, the share of voxels with a positive
             per pair of the batch, 2 000 sampled queries of each pair against
             an f64 brute force, kernel launches per step asserted (A 82: 80
-            tensor-core + 2 scalar; B 2; C and D 0), peak memory
+            tensor-core + 2 cin1 and no scalar; B 2; C and D 0), peak memory
   dp        data parallelism at the train phase's width (bench_config, the
             search builder, synthetic_batch(RandomState(0) and (1), 2 pairs,
             200k points, n_pad 65 536)). One rank over NCCL, in this
@@ -104,8 +108,9 @@ Phases, each printed as one JSON line:
             "cuda:0"])), in the one pair of new processes of the last
             phases: 3 steps against make_emulated_dp_step on the same
             batches and draws (within 1e-5 of each tensor's largest entry;
-            the maximum printed), both ranks bit-equal, A 82, B 2 a rank and
-            step; batches/s of the two ranks against one. Then
+            the maximum printed), both ranks bit-equal, A 82 (80 tensor-core
+            + 2 cin1), B 2 a rank and step; batches/s of the two ranks
+            against one. Then
             Trainer.train() on the two ranks (2 epochs of 2 steps, 50 000
             points a fragment, one validation pair an epoch) against 1
             epoch, a checkpoint and a resume: bit-equal on each rank; per
@@ -126,7 +131,7 @@ Phases, each printed as one JSON line:
             memory, each epoch's mean loss, each validation epoch's metrics,
             the checkpoint names. Fails unless every loss is finite, the last
             epoch's mean loss is below the first's, a training step launches
-            A 82 (80 tensor-core + 2 scalar), B 2, D 2 and C 0 and a
+            A 82 (80 tensor-core + 2 cin1), B 2, D 2 and C 0 and a
             validation step A 42, B 1, D 2, a best-validation checkpoint
             exists, and the last checkpoint loaded into a new Trainer takes a
             next step bit-equal (loss, parameters, buffers, momentum) to the
@@ -136,7 +141,13 @@ Phases, each printed as one JSON line:
             training loader's thread (workers=0) and fails unless every
             loss, and the parameters, buffers and momentum after the first
             epoch, equal the first run's bit for bit and no loader worker is
-            alive after the runs. Both runs' steps/s with the loader (over
+            alive after the runs. Batches reach the card through the
+            trainer's staging ring (train/trainer.py::BatchStager); one more
+            epoch with the worker moves every field pinned and copied on its
+            own, as before the ring, and must equal the first run's first
+            epoch bit for bit (losses, parameters, buffers, momentum): the
+            move with and without the ring is printed ("staging"). Both
+            runs' steps/s with the loader (over
             all epochs and over epochs 2-3, after the worker's start),
             median step, data share and move ms are printed with
             nvidia-smi's name and power limit, beside the trainer's step on
@@ -185,10 +196,11 @@ Phases, each printed as one JSON line:
             32/64/64/128, conv1 k5, 32-d, bf16) through the bucketed
             extractor on fragment 0 of the benchmark scene (written anew):
             ms and launches a fragment (C 1, D 1, A 8 with conv1 in the
-            scalar variant, asserted), kernel A at each of its 8 convs
-            against the plain version (1e-4 of scale; variants asserted),
-            then 3 training steps on the train phase's batch (finite losses;
-            A 30 of which 2 scalar, B 2 a step, asserted)
+            cin1 variant, asserted), kernel A at each of its 8 convs
+            against the plain version (1e-4 of scale; variants asserted:
+            cin1 then 7 tensor-core), then 3 training steps on the train
+            phase's batch (finite losses; A 30 of which 2 cin1, B 2 a step,
+            asserted)
   convert   the seeded full-width ResUNetBN2C written as a released
             checkpoint would hold it (MinkowskiEngine offset order,
             perceiver_io names, the torchvision trunk) into a .pth, then cli
@@ -261,14 +273,15 @@ from imfnet_tpu_torch.eval.kitti import registration_errors
 from imfnet_tpu_torch.eval.registration import make_pair_registration, sample_keypoints_segment
 from imfnet_tpu_torch.geom.ply import write_ply
 from imfnet_tpu_torch.geom.transforms import apply_transform_np, axis_angle_rotation
-from imfnet_tpu_torch.match.nn_kernel import (MAX_SPLIT, NN_TILES, NNPlan, flash_nn,
-                                                nn_plain, nn_plan, run_plan)
+from imfnet_tpu_torch.match.nn_kernel import (MAX_SPLIT, NN_MIN_TILES, NN_TILES, NNPlan,
+                                                flash_nn, nn_plain, nn_plan, run_plan)
 from imfnet_tpu_torch.models import load_model
 from imfnet_tpu_torch.parallel import dp
 from imfnet_tpu_torch.parallel.mesh import close_mesh, make_mesh, mesh_backend, spawn_ranks
 from imfnet_tpu_torch.pipeline import N_PAD_MAX, PairRegistrar, bench_config
-from imfnet_tpu_torch.sparse.conv_kernel import (TC_TILES, conv_plan, gather_gemm,
-                                                 gather_gemm_plain)
+from imfnet_tpu_torch.sparse.conv_kernel import (SCALAR_TILE, TC_TILES, ConvPlan, conv_plan,
+                                                 gather_gemm, gather_gemm_plain)
+from imfnet_tpu_torch.sparse.conv_kernel import run_plan as conv_run_plan
 from imfnet_tpu_torch.sparse.grid import (GridSpec, cell_keys, compact_words, level_tables,
                                           quantize_grid, word_queries)
 from imfnet_tpu_torch.sparse.kernel_map import coarse_levels_fit
@@ -287,7 +300,8 @@ from imfnet_tpu_torch.train.state import create_train_state
 from imfnet_tpu_torch.train.step import (PairBatch, compute_correspondences, forward_pair,
                                          level_capacities, make_loss_fn, make_pyramid_fn,
                                          make_train_step, mean_step_over_ranks)
-from imfnet_tpu_torch.train.trainer import Trainer, batch_to_device, build_model_from_config
+from imfnet_tpu_torch.train.trainer import (STAGING_SLOTS, Trainer, batch_to_device,
+                                            build_model_from_config)
 from imfnet_tpu_torch.utils import cuda_build
 
 
@@ -330,27 +344,29 @@ REF_BF16_MIN_COS = 0.999
 KERNELS = {"sparse_conv_gather_gemm": gather_gemm, "flash_nn": flash_nn,
            "sorted_compact": sorted_compact, "word_match": word_match_many}
 A_VARIANTS = {"sparse_conv_gather_gemm.tc": "launches_tc",
+              "sparse_conv_gather_gemm.cin1": "launches_cin1",
               "sparse_conv_gather_gemm.scalar": "launches_scalar"}
 DEFAULT_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
                     "sorted_compact": 0, "word_match": 0,
                     "sparse_conv_gather_gemm.tc": 20,
-                    "sparse_conv_gather_gemm.scalar": 0}
+                    "sparse_conv_gather_gemm.cin1": 0, "sparse_conv_gather_gemm.scalar": 0}
 # the CUDA kernels of csrc/ by name, as the profiler reports them
-PORT_CUDA_KERNELS = ("gather_gemm_tc", "gather_gemm_kernel", "nn_transpose_kernel",
-                     "flash_nn_kernel", "compact_single_pass", "word_match_kernel")
+PORT_CUDA_KERNELS = ("gather_gemm_tc", "gather_gemm_cin1", "gather_gemm_kernel",
+                     "nn_transpose_kernel", "flash_nn_kernel", "flash_nn3_kernel",
+                     "compact_single_pass", "word_match_kernel")
 GRID_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
                  "sorted_compact": 1, "word_match": 1,
                  "sparse_conv_gather_gemm.tc": 20,
-                 "sparse_conv_gather_gemm.scalar": 0}
+                 "sparse_conv_gather_gemm.cin1": 0, "sparse_conv_gather_gemm.scalar": 0}
 
 
 # one training step: per side 20 tensor-core convs forward and their 20 dX
-# calls backward, and conv1 (k 125, cin 1) forward in the scalar variant
-# (its input needs no gradient); one positive search per pair of the batch
+# calls backward, and conv1 (k 125, cin 1) forward in the cin1 variant (its
+# input needs no gradient); one positive search per pair of the batch
 TRAIN_LAUNCHES = {"sparse_conv_gather_gemm": 82, "flash_nn": 2,
                   "sorted_compact": 0, "word_match": 0,
                   "sparse_conv_gather_gemm.tc": 80,
-                  "sparse_conv_gather_gemm.scalar": 2}
+                  "sparse_conv_gather_gemm.cin1": 2, "sparse_conv_gather_gemm.scalar": 0}
 # a step of the trainer builds its pyramids as the config says
 # (use_grid_maps: the grid pyramid, one grouped kernel-D launch a side), and a
 # validation step runs two eval-mode forwards (conv1 as a sparse conv: 21
@@ -359,7 +375,7 @@ TRAINER_STEP_LAUNCHES = dict(TRAIN_LAUNCHES, word_match=2)
 TRAINER_VAL_LAUNCHES = {"sparse_conv_gather_gemm": 42, "flash_nn": 1,
                         "sorted_compact": 0, "word_match": 2,
                         "sparse_conv_gather_gemm.tc": 40,
-                        "sparse_conv_gather_gemm.scalar": 2}
+                        "sparse_conv_gather_gemm.cin1": 2, "sparse_conv_gather_gemm.scalar": 0}
 # the trainer phase: 3 epochs of 4 batches of 2 pairs, 2 validation pairs an epoch
 TRAINER_RUN = dict(synthetic_length=8, max_epoch=3, val_max_iter=2)
 LOADER_WORKER = "PairLoader worker"   # the name of a loader's worker process
@@ -636,17 +652,19 @@ def phase_kernel_a(pyr, gen, backward=False):
     }
 
 
-def nn_compare(name, q, r, v, plan=None, same_index=True, tol=NN_D2_ATOL, gap_tol=None):
+def nn_compare(name, q, r, v, plan=None, same_index=True, tol=NN_D2_ATOL, gap_tol=None,
+               plain=None):
     """Kernel B (in ``plan``, else the plan of its shape) against the plain
-    version on one input: d² within ``tol``, every choice a valid
-    reference whose exact (f64) distance is within ``gap_tol`` (default
-    ``tol``) of the plain choice's, two calls bit-equal, and with
-    ``same_index`` equal indices; (0, +inf) where no reference is valid."""
+    version (``plain``, its result if already computed) on one input: d²
+    within ``tol``, every choice a valid reference whose exact (f64)
+    distance is within ``gap_tol`` (default ``tol``) of the plain choice's,
+    two calls bit-equal, and with ``same_index`` equal indices; (0, +inf)
+    where no reference is valid."""
     gap_tol = tol if gap_tol is None else gap_tol
     plan = plan or nn_plan(q.shape[0], r.shape[0], q.shape[1])
     i_k, d_k = run_plan(q, r, v, plan)
     i_2, d_2 = run_plan(q, r, v, plan)
-    i_p, d_p = nn_plain(q, r, v)
+    i_p, d_p = plain if plain is not None else nn_plain(q, r, v)
     torch.cuda.synchronize()
     bit_equal = torch.equal(i_k, i_2) and torch.equal(d_k, d_2)
     diff = torch.where(d_k == d_p, torch.zeros_like(d_k), (d_k - d_p).abs())
@@ -706,22 +724,30 @@ def nn_edge_cases(gen):
     return checked
 
 
-def nn_sweep(q, r, v):
-    """Every built tile x split of kernel B at the main path's shape: held
-    to the plain version, graph-timed, the plan's choice beside the best."""
-    plan = nn_plan(q.shape[0], r.shape[0], q.shape[1])
+def nn_sweep(q, r, v, phase="kernel", splits=range(1, MAX_SPLIT + 1), iters=20, **tols):
+    """Every built tile x split of kernel B at one shape (its width's fold,
+    at the given splits): each held to the plain version
+    (``nn_compare`` with ``tols``, computed once), graph-timed over
+    ``iters`` calls, the plan's choice beside the best."""
+    n, m, d = q.shape[0], r.shape[0], q.shape[1]
+    plan = nn_plan(n, m, d)
+    plain = nn_plain(q, r, v)
+    instances = ([(t, "min") for t in sorted(NN_MIN_TILES)] if d == 3
+                 else [(t, "pair") for t in sorted(NN_TILES)])
     rows = []
-    for bq, br, threads in sorted(NN_TILES):
-        for split in range(1, MAX_SPLIT + 1):
-            p = NNPlan(bq, br, threads, split)
-            nn_compare(f"sweep {p}", q, r, v, plan=p, same_index=False)
-            rows.append({"tile": [bq, br], "threads": threads, "split": split,
-                         "blocks": p.blocks(q.shape[0]),
-                         "ms": graph_ms(lambda: run_plan(q, r, v, p))})
+    for (bq, br, threads), fold in instances:
+        for split in splits:
+            p = NNPlan(bq, br, threads, split, fold)
+            nn_compare(f"sweep {p}", q, r, v, plan=p, same_index=False, plain=plain, **tols)
+            rows.append({"fold": fold, "tile": [bq, br], "threads": threads, "split": split,
+                         "blocks": p.blocks(n), "ms": graph_ms(lambda: run_plan(q, r, v, p),
+                                                               iters)})
     best = min(rows, key=lambda e: e["ms"])
-    mine = next(e for e in rows if (*e["tile"], e["threads"], e["split"]) == tuple(plan))
-    emit({"phase": "kernel", "kernel": "flash_nn", "sweep": rows, "plan": mine,
-          "best": best, "n": q.shape[0], "m": r.shape[0], "d": q.shape[1]})
+    mine = next((e for e in rows if (*e["tile"], e["threads"], e["split"], e["fold"])
+                 == tuple(plan)), None)
+    emit({"phase": phase, "kernel": "flash_nn", "sweep": rows, "plan": mine or list(plan),
+          "best": best, "n": n, "m": m, "d": d})
+    return {"plan_ms": mine["ms"] if mine else None, "best": best}
 
 
 def clocks_under_load(fn, seconds=1.0):
@@ -1075,18 +1101,20 @@ def phase_reference(path="default", compute_dtype="float32", **impls):
                                  ransac_max_iteration=12500,
                                  level_capacity_divisors=(1, 2, 4, 8))
     pair = synthetic_pair(np.random.RandomState(2), n_points=6000, image_hw=(24, 32))
-    want = {"float32": [0, 20], "bfloat16": [20, 0]}[compute_dtype]
+    want = {"float32": [0, 0, 20], "bfloat16": [20, 0, 0]}[compute_dtype]
     outs = []
     for device in ("cuda", "cpu"):
         reg = PairRegistrar(cfg, device=device, seed=1, **impls)
         pb = reg.prepare(pair.xyz0, pair.xyz1, pair.image0, pair.image1)
         q = reg.quantize(pb)
         pyr = reg.pyramid(q)
-        before = [gather_gemm.launches_tc, gather_gemm.launches_scalar]
+        before = [gather_gemm.launches_tc, gather_gemm.launches_cin1,
+                  gather_gemm.launches_scalar]
         feats = reg.forward(q, pyr, pb.images)
         if device == "cuda":
             variants = [gather_gemm.launches_tc - before[0],
-                        gather_gemm.launches_scalar - before[1]]
+                        gather_gemm.launches_cin1 - before[1],
+                        gather_gemm.launches_scalar - before[2]]
         n = q.sv.n_padded
         rs = np.random.RandomState(4)
         u = tuple(torch.from_numpy(rs.rand(n).astype(np.float32)).to(device)
@@ -1110,14 +1138,14 @@ def phase_reference(path="default", compute_dtype="float32", **impls):
     f_tol = REF_BF16_DESC_ATOL if bf16 else 1e-4
     emit({"phase": "reference", "path": path, "compute_dtype": compute_dtype, **impls,
           "voxels": int(qg.sv.num_valid),
-          "kernel_a_launches_tc_scalar": variants,
+          "kernel_a_launches_tc_cin1_scalar": variants,
           "descriptor_max_abs_err": f_err, "descriptor_tol": f_tol,
           "descriptor_min_cos": min_cos,
           "transform_max_abs_err": t_err, "transform_tol": None if bf16 else 1e-3,
           "accepted": [bool(og["accepted"]), bool(oc["accepted"])]})
     if variants != want:
         raise AssertionError(f"reference {path} {compute_dtype}: kernel A took "
-                             f"{variants} tensor-core/scalar launches, want {want}")
+                             f"{variants} tensor-core/cin1/scalar launches, want {want}")
     if f_err > f_tol or (bf16 and min_cos < REF_BF16_MIN_COS) or (
             not bf16 and (t_err > 1e-3 or not same_accept)):
         raise AssertionError(f"reference {path} {compute_dtype}: card and CPU disagree")
@@ -1201,30 +1229,43 @@ def train_model(cfg, device, seed=0):
 
 def phase_train_kernels(cfg, batch, gen):
     """The kernels at the training step's shapes, on side 0 of the batch:
-    kernel A's 20 dX calls and conv1's scalar call, kernel B's positive
-    search, and the plain dW products of a step."""
+    kernel A's 20 dX calls and conv1's cin1 call (beside the scalar variant
+    that took it before),
+    kernel B's positive search (with the sweep of its tiles), and the
+    plain dW products of a step."""
     with torch.no_grad():
         pyr = make_pyramid_fn(cfg, TRAIN_N_PAD, TRAIN_BATCH)(batch.coords0, batch.n0)
     back = phase_kernel_a(pyr, gen, backward=True)
 
-    # conv1: k = 5^3 offsets, one input channel, so the scalar variant
+    # conv1: k = 5^3 offsets, one input channel, so the cin1 variant
     n = TRAIN_N_PAD
     x = batch.feats0.to(torch.bfloat16)
     w = (torch.randn((125, 1, 32), generator=gen, device="cuda") * 125 ** -0.5).to(torch.bfloat16)
     nbr = pyr.k5_l0
     plan = conv_plan(n, 1, 32, 125, x.dtype)
+    before = (gather_gemm.launches_cin1, gather_gemm.launches_scalar)
     out, again, ref = gather_gemm(x, nbr, w), gather_gemm(x, nbr, w), gather_gemm_plain(x, nbr, w)
+    torch.cuda.synchronize()
+    launched = (gather_gemm.launches_cin1 - before[0], gather_gemm.launches_scalar - before[1])
     err, tol = float((out - ref).abs().max()), CONV_TOL_REL * max(1.0, float(ref.abs().max()))
-    if plan.variant != "scalar" or err > tol or not torch.equal(out, again):
-        raise AssertionError(f"kernel A at conv1: plan {plan}, err {err} > {tol}, or two "
-                             f"calls differ")
+    dead = (nbr < 0).all(dim=1)
+    if (plan.variant != "cin1" or launched != (2, 0) or err > tol or not torch.equal(out, again)
+            or not bool((out[dead] == 0).all())):
+        raise AssertionError(f"kernel A at conv1: plan {plan}, launches cin1/scalar "
+                             f"{launched}, err {err} > {tol}, two calls differ, or a dead "
+                             f"row is not exactly 0")
     nnz = int((nbr >= 0).sum())
+    scalar = ConvPlan("scalar", *SCALAR_TILE, 1)
     conv1 = {"conv": "conv1", "cin": 1, "cout": 32, "k_vol": 125, "n_out": n, "nnz": nnz,
-             "variant": plan.variant, "max_abs_err": err, "tol": tol,
-             "ms": graph_ms(lambda: gather_gemm(x, nbr, w), 5),
+             "variant": plan.variant, "bm": plan.bm, "max_abs_err": err, "tol": tol,
+             "bit_equal": True, "dead_rows": int(dead.sum()),
+             "ms": graph_ms(lambda: gather_gemm(x, nbr, w), 10),
+             "scalar_variant_ms": graph_ms(lambda: conv_run_plan(x, nbr, w, scalar), 5),
              "plain_ms": graph_ms(lambda: gather_gemm_plain(x, nbr, w), 3),
+             "library_ms": None,
              "bound_ms": (nbr.numel() * 4 + n * 2 + n * 32 * 4) / PEAK_BYTES * 1e3,
              "bound_by": "bytes"}
+    conv1["x_bound"] = conv1["ms"] / conv1["bound_ms"]
     emit({"phase": "train_kernel", "kernel": "sparse_conv_gather_gemm", **conv1})
 
     # kernel B as compute_correspondences calls it: side 0's voxels against
@@ -1233,7 +1274,7 @@ def phase_train_kernels(cfg, batch, gen):
     # distance, not by its index
     valid = row_mask(n, batch.n1) & (batch.coords1[:, 0] == 0)
     search = kernel_b_entry("positive search, one pair of the batch", batch.xyz0.contiguous(),
-                            batch.xyz1.contiguous(), valid, "train_kernel")
+                            batch.xyz1.contiguous(), valid, "train_kernel", sweep=True)
 
     # dW has no kernel: a plain gather and product per conv (sparse/ops.py)
     dw_ms = 0.0
@@ -1315,9 +1356,11 @@ def phase_train_reference():
         runs[device] = (float(metrics["loss"]), grads,
                         {k: v.detach().cpu() for k, v in model.state_dict().items()})
     (loss_g, grads_g, sd_g), (loss_c, grads_c, sd_c) = runs["cuda"], runs["cpu"]
-    # f32: every kernel-A launch takes the scalar variant; conv1's input has
-    # no gradient, so 21 forward + 20 dX a side
-    want = {"sparse_conv_gather_gemm.scalar": 82, "sparse_conv_gather_gemm.tc": 0, "flash_nn": 2}
+    # f32: every kernel-A launch at cin > 1 takes the scalar variant, conv1
+    # (cin 1) the cin1 one; conv1's input has no gradient, so 21 forward + 20
+    # dX a side
+    want = {"sparse_conv_gather_gemm.scalar": 80, "sparse_conv_gather_gemm.cin1": 2,
+            "sparse_conv_gather_gemm.tc": 0, "flash_nn": 2}
     if any(launched[k] != v for k, v in want.items()):
         raise AssertionError(f"train_reference: launches {launched}, want {want}")
     def rel_l2(keys, got, ref):
@@ -1515,6 +1558,22 @@ class CountingTrainer(Trainer):
         return out
 
 
+def pinned_per_field(batch, device):
+    """The move to the card before the staging ring: every field pinned anew
+    and copied on its own. The trainer phase's unstaged reference (no path
+    of the port moves batches so)."""
+    return PairBatch(*(None if t is None else t.pin_memory().to(device, non_blocking=True)
+                       for t in batch))
+
+
+class UnstagedTrainer(CountingTrainer):
+    """The counting trainer with ``pinned_per_field`` in place of its
+    staging ring."""
+
+    def move(self, batch):
+        return pinned_per_field(batch, self.device)
+
+
 def loader_workers_alive():
     """The loaders' worker processes this process still has."""
     return [p.name for p in multiprocessing.active_children() if p.name == LOADER_WORKER]
@@ -1550,8 +1609,11 @@ def phase_trainer(out_dir):
     best-validation checkpoint exists, the last checkpoint, loaded into a
     new Trainer, takes a next step bit-equal to the first trainer's, the
     two runs are bit-equal (every loss; the first epoch's parameters,
-    buffers and momentum) and no loader worker is alive after them. The
-    runs' files go to ``out_dir``."""
+    buffers and momentum), the first epoch of a third run, with the
+    worker and without the staging ring (``UnstagedTrainer``, no
+    validation), is bit-equal to the first run's, and no loader worker is
+    alive after them. Prints the move to the card with and without the
+    ring. The runs' files go to ``out_dir``."""
     cfg = bench_config().replace(
         batch_size=TRAIN_BATCH, val_batch_size=1, dataset="SyntheticPairDataset",
         synthetic_n_points=200_000, max_points=TRAIN_N_PAD, stat_freq=1, out_dir=out_dir,
@@ -1576,6 +1638,27 @@ def phase_trainer(out_dir):
     launches = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     alive_after_run = loader_workers_alive()
+
+    # ---- the first epoch again with the worker but without the staging
+    # ring: every field pinned and copied on its own, as before the ring
+    cfgu = cfg.replace(out_dir=os.path.join(out_dir, "unstaged"), max_epoch=1)
+    unstaged = UnstagedTrainer(cfgu, make_data_loader(cfgu, "train", cfgu.batch_size), None)
+    unstaged.init_state()
+    unstaged.train()
+    torch.cuda.synchronize()
+    n_first = unstaged.epochs[0]["steps"]
+    staged_equal, staged_gap = arrays_gap(unstaged.first_epoch_state, trainer.first_epoch_state,
+                                          "trainer: the first epoch, unstaged against staged")
+    staged_equal = staged_equal and all(torch.equal(x, y) for x, y in
+                                        zip(unstaged.losses, trainer.losses[:n_first]))
+    staging = {"slots": STAGING_SLOTS, "bit_equal_first_epoch": staged_equal,
+               "states_max_rel_err": staged_gap,
+               "move_ms_first_epoch": {"staged": trainer.epochs[0]["move_timer_avg_ms"],
+                                       "unstaged": unstaged.epochs[0]["move_timer_avg_ms"]},
+               "move_ms_staged_epochs": [e["move_timer_avg_ms"] for e in trainer.epochs],
+               "unstaged_steps_per_s": n_first / unstaged.epochs[0]["seconds"],
+               "unstaged_step_ms_median": float(np.median(unstaged.step_ms))}
+    del unstaged
 
     # ---- the same run with the training loader's thread: its epochs after
     # the first read against the worker's epochs after the first
@@ -1657,6 +1740,7 @@ def phase_trainer(out_dir):
           "repeated_batch_step_ms": {"steps": REPEATED_STEPS,
                                      "median": float(np.median(repeated_ms)),
                                      "min": min(repeated_ms), "max": max(repeated_ms)},
+          "staging": staging,
           "workers_1_vs_0": {"first_epoch_steps": n_first, "bit_equal": first_equal,
                                          "losses_equal": losses_equal,
                                          "states_max_rel_err": states_gap},
@@ -1680,6 +1764,9 @@ def phase_trainer(out_dir):
     if not first_equal:
         raise AssertionError(f"trainer: the run with workers=1 differs from workers=0: "
                              f"losses equal {losses_equal}, states {states_gap}")
+    if not staged_equal:
+        raise AssertionError(f"trainer: the staged run differs from the unstaged one: "
+                             f"{staged_gap}")
     if alive_after_run or loader_workers_alive():
         raise AssertionError(f"trainer: loader workers outlive the run: {alive_after_run}, "
                              f"{loader_workers_alive()}")
@@ -1725,10 +1812,10 @@ BENCH_WIDE = BENCH_FRAGMENTS - 1      # this fragment also sees a wall 16 m away
 FRAGMENT_LAUNCHES = {
     "grid": {"sparse_conv_gather_gemm": 20, "flash_nn": 0, "sorted_compact": 1,
              "word_match": 1, "sparse_conv_gather_gemm.tc": 20,
-             "sparse_conv_gather_gemm.scalar": 0},
+             "sparse_conv_gather_gemm.cin1": 0, "sparse_conv_gather_gemm.scalar": 0},
     "exact": {"sparse_conv_gather_gemm": 20, "flash_nn": 0, "sorted_compact": 0,
               "word_match": 0, "sparse_conv_gather_gemm.tc": 20,
-              "sparse_conv_gather_gemm.scalar": 0},
+              "sparse_conv_gather_gemm.cin1": 0, "sparse_conv_gather_gemm.scalar": 0},
 }
 SMALL_FRAGMENT_POINTS = 6000          # the card-vs-CPU fragment
 
@@ -2056,7 +2143,7 @@ ICP_CPU_POINTS = 8192                 # the card-vs-CPU ICP check, per side
 ICP_ATOL = 1e-4
 KITTI_PAIR_LAUNCHES = {"sparse_conv_gather_gemm": 40, "flash_nn": 2, "sorted_compact": 0,
                        "word_match": 2, "sparse_conv_gather_gemm.tc": 40,
-                       "sparse_conv_gather_gemm.scalar": 0}
+                       "sparse_conv_gather_gemm.cin1": 0, "sparse_conv_gather_gemm.scalar": 0}
 
 
 def write_kitti_scans(root, seed=0):
@@ -2188,7 +2275,7 @@ def phase_kitti(gen):
             src[:len(xyz0)] = torch.from_numpy(apply_transform_np(xyz0, M).astype(np.float32)).cuda()
             dst[:len(xyz1)] = torch.from_numpy(xyz1).cuda()
             dvalid = torch.arange(n_pad, device="cuda") < len(xyz1)
-            icp_nn = kernel_b_entry("ICP, pair 0", src, dst, dvalid, "kitti")
+            icp_nn = kernel_b_entry("ICP, pair 0", src, dst, dvalid, "kitti", sweep=True)
             model, _ = load_model_from_checkpoint(ckpt, torch.device("cuda"))
             loader = make_data_loader(cfg, "test", 1, shuffle=False, device="cuda")
             batch = batch_to_device(next(iter(loader)), torch.device("cuda"))
@@ -2275,19 +2362,19 @@ def phase_kitti(gen):
 
 ZOO_MODEL = "SimpleNetBN2C"
 # SimpleNetBN2C's 8 kernel-A convs (channels 32/64/128/256, tr 32/64/64/128):
-# (name, level, map, cin, cout); conv1 (k 5^3, cin 1) is the scalar variant
+# (name, level, map, cin, cout); conv1 (k 5^3, cin 1) is the cin1 variant
 ZOO_CONVS = (("conv1", 0, "k5", 1, 32), ("conv2", 1, "down", 32, 64),
              ("conv3", 2, "down", 64, 128), ("conv4", 3, "down", 128, 256),
              ("conv4_tr", 2, "up", 256, 128), ("conv3_tr", 1, "up", 256, 64),
              ("conv2_tr", 0, "up", 128, 64), ("conv1_tr", 0, "k3_same", 96, 32))
 ZOO_FRAGMENT_LAUNCHES = {"sparse_conv_gather_gemm": 8, "flash_nn": 0, "sorted_compact": 1,
                          "word_match": 1, "sparse_conv_gather_gemm.tc": 7,
-                         "sparse_conv_gather_gemm.scalar": 1}
+                         "sparse_conv_gather_gemm.cin1": 1, "sparse_conv_gather_gemm.scalar": 0}
 # a training step: per side 8 forward convs and the dX calls of the 7 whose
 # input needs a gradient (not conv1's); one positive search per pair
 ZOO_STEP_LAUNCHES = {"sparse_conv_gather_gemm": 30, "flash_nn": 2, "sorted_compact": 0,
                      "word_match": 0, "sparse_conv_gather_gemm.tc": 28,
-                     "sparse_conv_gather_gemm.scalar": 2}
+                     "sparse_conv_gather_gemm.cin1": 2, "sparse_conv_gather_gemm.scalar": 0}
 ZOO_STEPS = 3
 # the image saliency's backward reaches the image through the fusion, so
 # only the 9 decoder convs after it take a dX call (kernel A through their
@@ -2336,7 +2423,7 @@ def hold_conv_list(pyr, convs, gen, where, backward=False, timed=False):
         x, nbr, w = conv_call(pyr, name, level, which, cin, cout, gen, backward)
         ci, co = w.shape[1], w.shape[2]
         plan = conv_plan(nbr.shape[0], ci, co, nbr.shape[1], x.dtype)
-        attr = "launches_tc" if plan.variant == "tc" else "launches_scalar"
+        attr = f"launches_{plan.variant}"
         before = getattr(gather_gemm, attr)
         out, ref = gather_gemm(x, nbr, w), gather_gemm_plain(x, nbr, w)
         err = float((out - ref).abs().max())
@@ -2364,9 +2451,9 @@ def hold_conv_list(pyr, convs, gen, where, backward=False, timed=False):
 def phase_zoo(frag0, gen):
     """SimpleNetBN2C at full width (conv1 k5, 32-d, bf16) through the
     bucketed extractor on a benchmark fragment (ms and launches a fragment:
-    C 1, D 1, A 8 of which conv1 scalar, asserted), kernel A at each of its
+    C 1, D 1, A 8 of which conv1 cin1, asserted), kernel A at each of its
     convs against the plain version, then ZOO_STEPS training steps on the
-    train phase's batch (finite losses; A 30: 28 tensor-core + 2 scalar,
+    train phase's batch (finite losses; A 30: 28 tensor-core + 2 cin1,
     B 2 a step, asserted)."""
     from imfnet_tpu_torch.geom.ply import read_ply
 
@@ -2420,7 +2507,7 @@ def phase_zoo(frag0, gen):
                              f"want {ZOO_FRAGMENT_LAUNCHES}")
     if not (np.isfinite(feats).all() and np.allclose(norms, 1.0, atol=1e-3)):
         raise AssertionError("zoo: descriptors are not finite unit vectors")
-    if [c["variant"] for c in convs] != ["scalar"] + ["tc"] * 7:
+    if [c["variant"] for c in convs] != ["cin1"] + ["tc"] * 7:
         raise AssertionError(f"zoo: kernel A's variants {[c['variant'] for c in convs]}")
     if step_launches != {k: v * ZOO_STEPS for k, v in ZOO_STEP_LAUNCHES.items()}:
         raise AssertionError(f"zoo: {step_launches} over {ZOO_STEPS} steps, "
@@ -2608,7 +2695,8 @@ def phase_dam(root, ckpt, frag0, gen):
           "overlay_shape": list(overlay.shape), "cli_output": text.strip().splitlines()})
     want_cli = {"sparse_conv_gather_gemm": 49, "flash_nn": 0, "sorted_compact": 1,
                 "word_match": 1 if cfg.use_grid_maps else 0,
-                "sparse_conv_gather_gemm.tc": 49, "sparse_conv_gather_gemm.scalar": 0}
+                "sparse_conv_gather_gemm.tc": 49, "sparse_conv_gather_gemm.cin1": 0,
+                "sparse_conv_gather_gemm.scalar": 0}
     if cli_launches != want_cli or a_fwd != 20 or a_dx != len(DAM_DX_CONVS):
         raise AssertionError(f"dam: launches {cli_launches} (want {want_cli}), A forward "
                              f"{a_fwd}, A dX {a_dx}")
@@ -2653,7 +2741,8 @@ def phase_visualize(root, ckpt, scene_dir):
           "flash_nn_per_pair": launches["flash_nn"],
           "view_points": {v: len(d["points"]) for v, d in views.items()}})
     want = {"sparse_conv_gather_gemm": 40, "flash_nn": 2, "sorted_compact": 2, "word_match": 2,
-            "sparse_conv_gather_gemm.tc": 40, "sparse_conv_gather_gemm.scalar": 0}
+            "sparse_conv_gather_gemm.tc": 40, "sparse_conv_gather_gemm.cin1": 0,
+            "sparse_conv_gather_gemm.scalar": 0}
     if launches != want:
         raise AssertionError(f"visualize: launches {launches}, want {want}")
     rigid = np.allclose(pose[:3, :3] @ pose[:3, :3].T, np.eye(3), atol=1e-3)
@@ -2828,12 +2917,14 @@ def phase_slice8(gen, kernels):
                      "overlap_launches": overlap_launches[name]})
         if name == "flash_nn":
             kern.update({f"overlap_{k}": overlap_nn[k]
-                         for k in ("n", "m", "d", "max_abs_err", "ms", "plain_ms", "library_ms",
-                                   "bound_ms", "bound_by")})
+                         for k in ("n", "m", "d", "fold", "max_abs_err", "ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by")})
         if name == "sparse_conv_gather_gemm":
             conv1 = next(c for c in zoo["convs"] if c["conv"] == "conv1")
             kern.update({"zoo_max_abs_err": max(c["max_abs_err"] for c in zoo["convs"]),
-                         "zoo_conv1_ms": conv1["ms"], "zoo_conv1_plain_ms": conv1["plain_ms"]})
+                         "zoo_conv1_variant": conv1["variant"], "zoo_conv1_ms": conv1["ms"],
+                         "zoo_conv1_plain_ms": conv1["plain_ms"],
+                         "zoo_conv1_bound_ms": conv1["bound_ms"]})
 
 
 def forward_pair_eval(model, batch, cfg):
@@ -2841,7 +2932,7 @@ def forward_pair_eval(model, batch, cfg):
         return forward_pair(model, batch, train=False, config=cfg)
 
 
-def kernel_b_entry(case, q, r, v, phase, chunk=8192):
+def kernel_b_entry(case, q, r, v, phase, chunk=8192, sweep=False):
     """Kernel B against its plain version on one input (``nn_compare``,
     indices by their exact distance), graph-timed, with its plain time,
     ``cdist`` + ``min`` in chunks of queries, and its bound.
@@ -2851,11 +2942,12 @@ def kernel_b_entry(case, q, r, v, phase, chunk=8192):
     the largest (3.5e-3 on KITTI's scans, |x|² up to 3 516). The exact distance of the
     choice is held to twice that: both versions choose in f32, and where
     every candidate's d² is within e of its exact value, the chosen one's
-    exact d² is within 2e of the nearest's."""
+    exact d² is within 2e of the nearest's. With ``sweep``, also every
+    tile at split 1 and 2 (``nn_sweep``)."""
     scale = max(float((q * q).sum(1).max()), float((r * r).sum(1).max()))
-    held = nn_compare(case, q, r, v, same_index=False,
-                      tol=max(NN_D2_ATOL, NN_D2_REL * scale),
-                      gap_tol=max(NN_D2_ATOL, 2 * NN_D2_REL * scale))
+    tols = dict(tol=max(NN_D2_ATOL, NN_D2_REL * scale),
+                gap_tol=max(NN_D2_ATOL, 2 * NN_D2_REL * scale))
+    held = nn_compare(case, q, r, v, same_index=False, **tols)
     n, m, d = q.shape[0], r.shape[0], q.shape[1]
 
     def library():
@@ -2867,13 +2959,17 @@ def kernel_b_entry(case, q, r, v, phase, chunk=8192):
 
     ops, nbytes = 2.0 * n * m * d, (q.numel() + r.numel()) * 4 + m + n * 8
     plan = nn_plan(n, m, d)
-    entry = {"case": case, "n": n, "m": m, "d": d, **held, "tile": [plan.bq, plan.br],
+    entry = {"case": case, "n": n, "m": m, "d": d, **held, "fold": plan.fold,
+             "tile": [plan.bq, plan.br], "threads": plan.threads,
              "split": plan.split, "blocks": plan.blocks(n),
              "ms": graph_ms(lambda: flash_nn(q, r, v), 5),
              "plain_ms": cuda_ms(lambda: nn_plain(q, r, v), 2, warmup=1),
              "library_ms": cuda_ms(library, 2, warmup=1),
              "bound_ms": max(ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3,
              "bound_by": "operations" if ops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES else "bytes"}
+    entry["x_bound"] = entry["ms"] / entry["bound_ms"]
+    if sweep:
+        entry["sweep_best"] = nn_sweep(q, r, v, phase, splits=(1, 2), iters=5, **tols)["best"]
     emit({"phase": phase, "kernel": "flash_nn", **entry})
     return entry
 
@@ -3423,18 +3519,25 @@ def main():
     profile_units(lambda: step(state, batch, step_gen), seconds_per_step * 1e3,
                   "train_profile", "step", 3)
     a, b = kernels[0], kernels[1]
-    a.update({"train_launches": train_launches[a["name"]],
-              "train_launches_tc": train_launches["sparse_conv_gather_gemm.tc"],
-              "train_launches_scalar": train_launches["sparse_conv_gather_gemm.scalar"],
+    by_variant = lambda counts: {v: counts[f"sparse_conv_gather_gemm.{v}"]  # noqa: E731
+                                 for v in ("tc", "cin1", "scalar")}
+    a.update({"launches_by_variant": by_variant(launches),
+              "train_launches": train_launches[a["name"]],
+              "train_launches_by_variant": by_variant(train_launches),
               "backward_max_abs_err": train_kernels["backward"]["max_abs_err"],
               "backward_ms": train_kernels["backward"]["ms"],
               "backward_plain_ms": train_kernels["backward"]["plain_ms"],
               "backward_bound_ms": train_kernels["backward"]["bound_ms"],
+              "conv1_variant": train_kernels["conv1"]["variant"],
               "conv1_ms": train_kernels["conv1"]["ms"],
+              "conv1_scalar_variant_ms": train_kernels["conv1"]["scalar_variant_ms"],
               "conv1_plain_ms": train_kernels["conv1"]["plain_ms"],
               "conv1_bound_ms": train_kernels["conv1"]["bound_ms"],
+              "conv1_max_abs_err": train_kernels["conv1"]["max_abs_err"],
               "weight_grad_plain_ms_per_step": train_kernels["dw_ms_per_step"]})
     b.update({"train_launches": train_launches[b["name"]],
+              "search_fold": train_kernels["search"]["fold"],
+              "search_max_abs_err": train_kernels["search"]["max_abs_err"],
               "search_ms": train_kernels["search"]["ms"],
               "search_plain_ms": train_kernels["search"]["plain_ms"],
               "search_bound_ms": train_kernels["search"]["bound_ms"]})
@@ -3470,7 +3573,7 @@ def main():
         kern["kitti_icp_launches"] = icp_launches[kern["name"]]
         kern["eval_kitti_launches"] = kitti_launches[kern["name"]]
     b.update({f"{pre}_{k}": e[k] for pre, e in (("icp", icp_nn), ("kitti", kitti_nn))
-              for k in ("n", "m", "d", "max_abs_err", "ms", "plain_ms", "library_ms",
+              for k in ("n", "m", "d", "fold", "max_abs_err", "ms", "plain_ms", "library_ms",
                         "bound_ms", "bound_by")})
 
     # ---- the zoo, the converter, DAM, the visualizer, the offline tools ----

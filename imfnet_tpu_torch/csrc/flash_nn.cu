@@ -48,6 +48,27 @@
 //     bit-equal.
 // match/nn_kernel.py::nn_plan chooses the instance and the split from the
 // shape; chip_smoke.py sweeps them all (PERF.md has the table).
+//
+// D = 3 (the positive search of a training step, ICP's 30 calls a KITTI
+// pair, compute-overlap) is bound by the fold, not the dot: a pair's dot is
+// 3 FFMA, while folding it into a running (d, index) costs an fmaf, a
+// compare and two selects, so the kernel above ran at 3.4-3.5x the bound
+// there, which counts the dot alone; it now serves D = 32 only. The min
+// fold (flash_nn3_kernel, D = 3) keeps the pair's work at 4 instructions, a
+// floor near 4/3 of the bound:
+//  - the distance is accumulated directly, d = |r|^2 + sum_c (-2 q_c) r_c,
+//    three fmaf from the reference's norm, with the queries pre-scaled by
+//    -2 (exact) and held in registers for the whole walk;
+//  - each (query, thread column) keeps only its running minimum, one fminf
+//    a pair, and, once per reference tile, the last tile that lowered it
+//    (strictly: an equal value in a later tile does not move it);
+//  - after the walk each thread re-walks that one tile's TR references from
+//    device memory in increasing index, evaluating d by the same three fmaf,
+//    and takes the first whose d equals the minimum: the lowest index of the
+//    column at that distance, as the (d, index) fold gives;
+//  - the columns, then the cluster's parts, merge by (d, index) as above.
+// The distance rounds differently from the (d, index) fold (three roundings
+// against one), so near-tie choices are held to their exact distances.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -288,6 +309,218 @@ flash_nn_kernel(const float* __restrict__ qt, const float* __restrict__ rt,
   cluster.sync();  // no block leaves while a peer still reads its bests
 }
 
+// d = |r|^2 + sum_c a_c r_c with a = -2 q, three fmaf in component order:
+// the min fold and its index re-walk must evaluate it identically
+__device__ __forceinline__ float dist3(const float (&a)[3], float r0, float r1, float r2,
+                                       float rr) {
+  return fmaf(a[2], r2, fmaf(a[1], r1, fmaf(a[0], r0, rr)));
+}
+
+// D = 3 with the min fold: a block is GY x GX threads, each with TQ queries
+// in registers and TR references a tile; the tile is GY*TQ x GX*TR.
+template <int TQ, int TR, int GY, int GX>
+struct Nn3Tile {
+  static_assert(TQ % 4 == 0 && TR % 4 == 0 && GY % 4 == 0 && GX % 8 == 0 && GX <= 16,
+                "16-byte operand loads; a warp is 4 x 8 threads");
+  static constexpr int NT = GY * GX;
+  static constexpr int BQ = GY * TQ;
+  static constexpr int BR = GX * TR;
+  static constexpr int ROWS = 4;  // three components and the squared norm
+  static_assert(PAD % BR == 0, "reference tiles must not pass the scratch's padding");
+  // the ring of reference tiles; the per-thread bests of each query row, up
+  // to 16 (d, index) pairs, reuse it after the last tile
+  static constexpr int RING = STAGES * ROWS * BR > 32 * BQ ? STAGES * ROWS * BR : 32 * BQ;
+  // keep in step with nn_smem_bytes(..., fold="min") in match/nn_kernel.py
+  static constexpr size_t smem_bytes() { return (RING + 2 * BQ) * sizeof(float); }
+};
+
+template <int TQ, int TR, int GY, int GX>
+__global__ void __launch_bounds__(GY * GX, 2)
+flash_nn3_kernel(const float* __restrict__ qt, const float* __restrict__ rt,
+                 int n, int m, int n_pad, int m_pad, int split,
+                 int* __restrict__ out_i, float* __restrict__ out_d) {
+  using T = Nn3Tile<TQ, TR, GY, GX>;
+  constexpr int NT = T::NT, BQ = T::BQ, BR = T::BR, ROWS = T::ROWS;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                // [STAGES][ROWS][BR]
+  float* part_d = ring + T::RING;    // [BQ] this block's bests
+  int* part_i = reinterpret_cast<int*>(part_d + BQ);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int ty = (warp / (GX / 8)) * 4 + lane / 8;
+  const int tx = (warp % (GX / 8)) * 8 + lane % 8;
+  const int q0 = blockIdx.x * BQ;
+  const int part = blockIdx.y;
+  const int tiles = (m + BR - 1) / BR;
+  const int t_begin = (int)((long long)part * tiles / split);
+  const int count = (int)((long long)(part + 1) * tiles / split) - t_begin;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < count)
+      load_tile<ROWS, BR, NT>(ring + s * ROWS * BR, rt + (size_t)(t_begin + s) * BR, m_pad,
+                              tid);
+    cp_async_commit();
+  }
+
+  // this thread's queries, rows ((i / 4) * GY + ty) * 4 + i % 4, times -2;
+  // groups of four past n_pad (a query tile wider than the padding) are 0
+  float qa[TQ][3];
+#pragma unroll
+  for (int h = 0; h < TQ / 4; ++h) {
+    const int q = q0 + (h * GY + ty) * 4;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (q < n_pad) ld4(v, qt + (size_t)c * n_pad + q);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qa[4 * h + e][c] = -2.f * v[e];
+    }
+  }
+
+  float run[TQ];  // the running minimum of d over this thread's references
+  int tile_of[TQ];  // the walk's last tile that lowered it; -1: none did
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    run[i] = INFINITY;
+    tile_of[i] = -1;
+  }
+
+  for (int it = 0; it < count; ++it) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int nxt = it + STAGES - 1;
+    if (nxt < count)
+      load_tile<ROWS, BR, NT>(ring + (nxt % STAGES) * ROWS * BR,
+                              rt + (size_t)(t_begin + nxt) * BR, m_pad, tid);
+    cp_async_commit();
+
+    const float* rs = ring + (it % STAGES) * ROWS * BR;
+    float rv[ROWS][TR];
+#pragma unroll
+    for (int c = 0; c < ROWS; ++c)
+#pragma unroll
+      for (int h = 0; h < TR / 4; ++h) ld4(rv[c] + 4 * h, rs + c * BR + (h * GX + tx) * 4);
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) {
+      float d[TR];
+#pragma unroll
+      for (int j = 0; j < TR; ++j) d[j] = dist3(qa[i], rv[0][j], rv[1][j], rv[2][j], rv[3][j]);
+      // the tile's minimum as a tree (a minimum is exact in any order)
+#pragma unroll
+      for (int w = 1; w < TR; w *= 2)
+#pragma unroll
+        for (int j = 0; j + w < TR; j += 2 * w) d[j] = fminf(d[j], d[j + w]);
+      tile_of[i] = d[0] < run[i] ? it : tile_of[i];
+      run[i] = fminf(run[i], d[0]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free
+
+  // each query's index: the first reference of its tile at the minimum,
+  // from the k-major scratch (refs in increasing index as j falls)
+  float* red_d = ring;                                  // [BQ][GX]
+  int* red_i = reinterpret_cast<int*>(ring + GX * BQ);  // [BQ][GX]
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    int bi = 0;
+    if (tile_of[i] >= 0) {
+      const int j0 = (t_begin + tile_of[i]) * BR + tx * 4;
+#pragma unroll
+      for (int j = TR - 1; j >= 0; --j) {
+        const int idx = j0 + (j / 4) * (GX * 4) + j % 4;
+        const float d = dist3(qa[i], __ldg(rt + idx), __ldg(rt + (size_t)m_pad + idx),
+                              __ldg(rt + 2 * (size_t)m_pad + idx),
+                              __ldg(rt + 3 * (size_t)m_pad + idx));
+        if (d == run[i]) bi = idx;
+      }
+    }
+    const int row = ((i / 4) * GY + ty) * 4 + i % 4;
+    red_d[row * GX + tx] = run[i];
+    red_i[row * GX + tx] = bi;
+  }
+  __syncthreads();
+  for (int row = tid; row < BQ; row += NT) {
+    float bd = red_d[row * GX];
+    int bi = red_i[row * GX];
+    for (int x = 1; x < GX; ++x) {
+      const float d = red_d[row * GX + x];
+      const int i = red_i[row * GX + x];
+      if (nearer(d, i, bd, bi)) {
+        bd = d;
+        bi = i;
+      }
+    }
+    part_d[row] = bd;
+    part_i[row] = bi;
+  }
+
+  if (split == 1) {
+    for (int row = tid; row < BQ; row += NT)
+      if (q0 + row < n) {
+        out_i[q0 + row] = part_i[row];
+        out_d[q0 + row] = fmaxf(part_d[row] + qt[(size_t)3 * n_pad + q0 + row], 0.f);
+      }
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  for (int row = part + tid * split; row < BQ; row += NT * split) {
+    float bd = INFINITY;
+    int bi = 0;
+    for (int p = 0; p < split; ++p) {
+      const float d = cluster.map_shared_rank(part_d, p)[row];
+      const int i = cluster.map_shared_rank(part_i, p)[row];
+      if (nearer(d, i, bd, bi)) {
+        bd = d;
+        bi = i;
+      }
+    }
+    if (q0 + row < n) {
+      out_i[q0 + row] = bi;
+      out_d[q0 + row] = fmaxf(bd + qt[(size_t)3 * n_pad + q0 + row], 0.f);
+    }
+  }
+  cluster.sync();
+}
+
+template <typename Kernel>
+cudaError_t launch_cluster(Kernel kernel, size_t smem, int bq, int threads, const float* qt,
+                           const float* rt, int n, int m, int n_pad, int m_pad, int split,
+                           int* out_i, float* out_d, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n + bq - 1) / bq, split);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = split;  // the parts of one query tile: one cluster
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, qt, rt, n, m, n_pad, m_pad, split, out_i, out_d);
+}
+
+template <int TQ, int TR, int GY, int GX>
+cudaError_t launch_nn3(const float* qt, const float* rt, int n, int m, int n_pad, int m_pad,
+                       int split, int* out_i, float* out_d, cudaStream_t stream) {
+  using T = Nn3Tile<TQ, TR, GY, GX>;
+  auto kernel = flash_nn3_kernel<TQ, TR, GY, GX>;
+  static bool smem_allowed = false;  // per instance
+  if (!smem_allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::smem_bytes());
+    if (e != cudaSuccess) return e;
+    smem_allowed = true;
+  }
+  return launch_cluster(kernel, T::smem_bytes(), T::BQ, T::NT, qt, rt, n, m, n_pad, m_pad,
+                        split, out_i, out_d, stream);
+}
+
 template <int D, int TQ, int TR, int GY, int GX>
 cudaError_t launch_nn(const float* qt, const float* rt, int n, int m, int n_pad,
                       int m_pad, int split, int* out_i, float* out_d,
@@ -301,23 +534,12 @@ cudaError_t launch_nn(const float* qt, const float* rt, int n, int m, int n_pad,
     if (e != cudaSuccess) return e;
     smem_allowed = true;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n + T::BQ - 1) / T::BQ, split);
-  cfg.blockDim = dim3(T::NT);
-  cfg.dynamicSmemBytes = T::smem_bytes();
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = split;  // the parts of one query tile: one cluster
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = split > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, qt, rt, n, m, n_pad, m_pad, split, out_i, out_d);
+  return launch_cluster(kernel, T::smem_bytes(), T::BQ, T::NT, qt, rt, n, m, n_pad, m_pad,
+                        split, out_i, out_d, stream);
 }
 
 template <int D>
-cudaError_t launch_d(int bq, int br, int threads, const float* q, const float* r,
+cudaError_t launch_d(int bq, int br, int threads, int fold, const float* q, const float* r,
                      const uint8_t* valid, float* scratch, int n, int m, int split,
                      int* out_i, float* out_d, cudaStream_t stream) {
   const int n_pad = (n + PAD - 1) / PAD * PAD, m_pad = (m + PAD - 1) / PAD * PAD;
@@ -327,24 +549,41 @@ cudaError_t launch_d(int bq, int br, int threads, const float* q, const float* r
       q, r, valid, n, m, n_pad, m_pad, qt, rt);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
+  if constexpr (D == 3) {  // the min fold
+    if (fold != 1) return cudaErrorInvalidValue;
+#define NN3_INSTANCE(TQ, TR, GY, GX)                                              \
+  if (bq == GY * TQ && br == GX * TR && threads == GY * GX)                       \
+    return launch_nn3<TQ, TR, GY, GX>(qt, rt, n, m, n_pad, m_pad, split, out_i, out_d, stream);
+    // keep in step with NN_MIN_GEOMETRY in match/nn_kernel.py
+    NN3_INSTANCE(8, 8, 8, 16)    // 64 x 128, 128 threads
+    NN3_INSTANCE(8, 8, 16, 16)   // 128 x 128, 256 threads
+    NN3_INSTANCE(8, 16, 16, 8)   // 128 x 128, 128 threads
+    NN3_INSTANCE(8, 16, 32, 8)   // 256 x 128, 256 threads
+    NN3_INSTANCE(16, 16, 16, 8)  // 256 x 128, 128 threads: the plan's
+#undef NN3_INSTANCE
+  } else {  // the (d, index) fold
+    if (fold != 0) return cudaErrorInvalidValue;
 #define NN_INSTANCE(TQ, TR, GY, GX)                                              \
   if (bq == GY * TQ && br == GX * TR && threads == GY * GX)                      \
     return launch_nn<D, TQ, TR, GY, GX>(qt, rt, n, m, n_pad, m_pad, split, out_i, \
                                         out_d, stream);
-  // keep in step with NN_TILES in match/nn_kernel.py
-  NN_INSTANCE(8, 8, 8, 16)    // 64 x 128, 128 threads: the plan's
-  NN_INSTANCE(8, 8, 16, 16)   // 128 x 128, 256 threads
-  NN_INSTANCE(8, 4, 16, 16)   // 128 x 64, 256 threads
-  NN_INSTANCE(4, 8, 16, 16)   // 64 x 128, 256 threads
-  NN_INSTANCE(4, 4, 16, 16)   // 64 x 64, 256 threads
+    // keep in step with NN_TILES in match/nn_kernel.py
+    NN_INSTANCE(8, 8, 8, 16)    // 64 x 128, 128 threads: the plan's
+    NN_INSTANCE(8, 8, 16, 16)   // 128 x 128, 256 threads
+    NN_INSTANCE(8, 4, 16, 16)   // 128 x 64, 256 threads
+    NN_INSTANCE(4, 8, 16, 16)   // 64 x 128, 256 threads
+    NN_INSTANCE(4, 4, 16, 16)   // 64 x 64, 256 threads
 #undef NN_INSTANCE
+  }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q f32 [n, d], r f32 [m, d], valid uint8 [m] or null (all valid), all
-// contiguous; out_i int32 [n], out_d f32 [n], n > 0. d must be 3 or 32.
+// contiguous; out_i int32 [n], out_d f32 [n], n > 0. d must be 3 or 32:
+// d = 32 takes fold 0, the (d, index) fold of flash_nn_kernel, d = 3 fold 1,
+// the min fold of flash_nn3_kernel.
 // scratch: (d + 1) * (n padded to 128 + m padded to 128) floats, 16-byte
 // aligned. bq x br is the block's tile of queries x references and threads
 // its size (one of the instances of launch_d), split the blocks of a cluster
@@ -352,7 +591,7 @@ cudaError_t launch_d(int bq, int br, int threads, const float* q, const float* r
 // CUDA error code (cudaErrorInvalidValue for a combination with no kernel).
 extern "C" int flash_nn(const void* q, const void* r, const void* valid,
                         void* scratch, void* out_i, void* out_d, int n, int m,
-                        int d, int bq, int br, int threads, int split,
+                        int d, int bq, int br, int threads, int split, int fold,
                         void* stream) {
   if (n <= 0 || m < 0 || split < 1 || split > MAX_SPLIT ||
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
@@ -366,9 +605,9 @@ extern "C" int flash_nn(const void* q, const void* r, const void* valid,
   float* od = static_cast<float*>(out_d);
   cudaError_t e;
   if (d == 32) {
-    e = launch_d<32>(bq, br, threads, qf, rf, vf, sf, n, m, split, oi, od, s);
+    e = launch_d<32>(bq, br, threads, fold, qf, rf, vf, sf, n, m, split, oi, od, s);
   } else if (d == 3) {
-    e = launch_d<3>(bq, br, threads, qf, rf, vf, sf, n, m, split, oi, od, s);
+    e = launch_d<3>(bq, br, threads, fold, qf, rf, vf, sf, n, m, split, oi, od, s);
   } else {
     e = cudaErrorInvalidValue;
   }

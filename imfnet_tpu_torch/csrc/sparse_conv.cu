@@ -31,8 +31,9 @@
 // its offsets takes. chip_smoke.py measures each shape against its bound,
 // and conv_sweep.py every tile and split (PERF.md).
 //
-// Two variants, chosen by the wrapper's plan (sparse/conv_kernel.py::conv_plan)
-// from dtype and shape, never by a failed launch:
+// Three variants, chosen by the wrapper's plan
+// (sparse/conv_kernel.py::conv_plan) from dtype and shape, never by a failed
+// launch:
 //
 // * Tensor cores (bf16, cin % 8 == 0, cout % 8 == 0, 16-byte aligned x, w and
 //   out; every conv of the main path). One block per 128 x BN output tile
@@ -63,10 +64,27 @@
 //     all S partials in rank order through distributed shared memory and
 //     writes them. No atomics, no second pass and one fixed order: two calls
 //     give bit-equal output.
-// * Scalar (f32 operands, whose 1e-4 parity TF32 would break, and widths that
-//   are not multiples of 8): one block of 256 threads per 64 x 64 tile; for
-//   each offset with a live row it stages the gathered rows and W[k] slice in
-//   shared memory as f32 and accumulates 4 x 4 outputs a thread with FMAs.
+// * One input channel (cin = 1, bf16 or f32: conv1 of every training step
+//   and of SimpleNet, k 125). There is no reduction over channels:
+//   out[i, :] = sum_k x[nbr[i, k]] * W[k, 0, :]. What bounds it is bytes:
+//   the int32 map [n_out, k_vol] read once (32.8 MB at the training conv1,
+//   65 536 x 125), x (128 KB, L2-resident) and the f32 output written once
+//   (8.4 MB): 0.0123 ms at 3.35 TB/s, against 32 FMAs per map entry, which
+//   the CUDA cores do in about as long. So one thread per output row with
+//   its 32 f32 accumulators in registers (a wider cout in passes of 32);
+//   the block's [bm, k_vol] map block staged once, coalesced (16-byte
+//   cp.async where the rows start aligned), and read back with an odd k_vol
+//   stride free of bank conflicts; W[:, 0, 32-wide pass] staged once per
+//   pass as f32 and read as broadcasts; x[nbr] one scalar gather per offset,
+//   a -1 entry contributing 0. Products are exact in f32 (bf16 operands) or
+//   fused (f32), summed in offset order k = 0 .. k_vol-1: two calls are
+//   bit-equal, and a dead row is exact 0. The pass's tile goes out through
+//   shared memory, one 128-byte row segment a warp store.
+// * Scalar (f32 operands at cin > 1, whose 1e-4 parity TF32 would break, and
+//   widths that are not multiples of 8): one block of 256 threads per 64 x 64
+//   tile; for each offset with a live row it stages the gathered rows and
+//   W[k] slice in shared memory as f32 and accumulates 4 x 4 outputs a
+//   thread with FMAs.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -163,6 +181,108 @@ gather_gemm_kernel(const T* __restrict__ x, const int* __restrict__ nbr,
       if (co < cout) out[(size_t)r * cout + co] = acc[i][j];
     }
   }
+}
+
+// ---------------------------------------------------------------- cin = 1
+
+constexpr int C1_BN = 32;        // output channels of a pass: a thread's accumulators
+constexpr int C1_MAX_BM = 128;   // rows (threads) of a block at most
+constexpr int C1_OUT_LD = C1_BN + 1;  // staged output row: conflict-free transpose
+
+// keep in step with cin1_smem_bytes in sparse/conv_kernel.py: the map
+// block, one pass's W slice as f32, the pass's staged output tile
+size_t cin1_smem_bytes(int bm, int k_vol) {
+  return ((size_t)bm * k_vol + (size_t)k_vol * C1_BN + (size_t)bm * C1_OUT_LD) * 4;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(C1_MAX_BM)
+gather_gemm_cin1(const T* __restrict__ x, const int* __restrict__ nbr,
+                 const T* __restrict__ w, float* __restrict__ out, int n_out,
+                 int k_vol, int cout) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bm = blockDim.x;
+  int* map_s = reinterpret_cast<int*>(smem);                  // [bm, k_vol]
+  float* w_s = reinterpret_cast<float*>(map_s + bm * k_vol);  // [k_vol, C1_BN]
+  float* o_s = w_s + k_vol * C1_BN;                           // [bm, C1_OUT_LD]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * bm;
+  const int rows = min(bm, n_out - row0);
+
+  // 1. the block's map rows: contiguous, so one coalesced pass
+  {
+    const int* src = nbr + (size_t)row0 * k_vol;
+    const int n = rows * k_vol;
+    int done = 0;
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      for (int e = tid; e < n / 4; e += bm)
+        cp_async_16(smem_u32(map_s + 4 * e), src + 4 * e, 16);
+      done = n / 4 * 4;
+    }
+    for (int e = done + tid; e < n; e += bm) map_s[e] = __ldg(src + e);
+    cp_async_commit();
+  }
+
+  const int* my_map = map_s + tid * k_vol;
+  for (int c0 = 0; c0 < cout; c0 += C1_BN) {
+    __syncthreads();  // the last pass's readers of w_s and o_s are done
+    // 2. this pass's W[:, 0, c0 .. c0+31] as f32, zero past cout
+    for (int e = tid; e < k_vol * C1_BN; e += bm) {
+      const int k = e / C1_BN, c = c0 + e % C1_BN;
+      w_s[e] = c < cout ? to_float(w[(size_t)k * cout + c]) : 0.f;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // 3. this thread's row: offsets in order, one gathered scalar each
+    float acc[C1_BN];
+#pragma unroll
+    for (int c = 0; c < C1_BN; ++c) acc[c] = 0.f;
+    if (tid < rows) {
+#pragma unroll 4
+      for (int k = 0; k < k_vol; ++k) {
+        const int s = my_map[k];
+        const float v = s >= 0 ? to_float(x[s]) : 0.f;
+        const float4* wk = reinterpret_cast<const float4*>(w_s + k * C1_BN);
+#pragma unroll
+        for (int q = 0; q < C1_BN / 4; ++q) {
+          const float4 ww = wk[q];  // the same address in every lane: a broadcast
+          acc[4 * q] = fmaf(v, ww.x, acc[4 * q]);
+          acc[4 * q + 1] = fmaf(v, ww.y, acc[4 * q + 1]);
+          acc[4 * q + 2] = fmaf(v, ww.z, acc[4 * q + 2]);
+          acc[4 * q + 3] = fmaf(v, ww.w, acc[4 * q + 3]);
+        }
+      }
+    }
+    // 4. out through shared memory: each warp stores its 32 rows, a row's
+    // 32 channels in one 128-byte store
+#pragma unroll
+    for (int c = 0; c < C1_BN; ++c) o_s[tid * C1_OUT_LD + c] = acc[c];
+    __syncwarp();
+    const int c = c0 + lane;
+    for (int i = 0; i < 32; ++i) {
+      const int r = warp * 32 + i;
+      if (r < rows && c < cout) out[(size_t)(row0 + r) * cout + c] = o_s[r * C1_OUT_LD + c - c0];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_cin1(const void* x, const void* nbr, const void* w, void* out,
+                        int n_out, int k_vol, int cout, int bm, cudaStream_t stream) {
+  auto kernel = gather_gemm_cin1<T>;
+  const size_t smem = cin1_smem_bytes(bm, k_vol);
+  static size_t smem_allowed = 0;  // per instance; raised once per size
+  if (smem > smem_allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_allowed = smem;
+  }
+  kernel<<<(n_out + bm - 1) / bm, bm, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const int*>(nbr), static_cast<const T*>(w),
+      static_cast<float*>(out), n_out, k_vol, cout);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------- tensor cores
@@ -462,7 +582,9 @@ constexpr TcInstance TC_INSTANCES[] = {
 // operands; bm, bn, bk and split are ignored); 1 the tensor-core kernel
 // (bf16, cin and cout multiples of 8, x, w and out 16-byte aligned) with a
 // bm x bn tile of one of TC_INSTANCES, bk input channels a step, and the
-// live offsets split over `split` blocks of a cluster (1..8, dividing bm).
+// live offsets split over `split` blocks of a cluster (1..8, dividing bm);
+// 2 the cin = 1 kernel (bf16 or f32) with bm rows a block (32, 64 or 128;
+// bn, bk and split are ignored) and out 16-byte aligned.
 // Launches on `stream` and returns a CUDA error code (cudaErrorInvalidValue
 // for a combination that has no kernel).
 extern "C" int sparse_conv_gather_gemm(const void* x, const void* nbr,
@@ -485,6 +607,13 @@ extern "C" int sparse_conv_gather_gemm(const void* x, const void* nbr,
           n_out, k_vol, cin, cout);
     }
     return static_cast<int>(cudaGetLastError());
+  }
+  if (variant == 2) {
+    if (cin != 1 || (bm != 32 && bm != 64 && bm != C1_MAX_BM))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        is_bf16 ? launch_cin1<__nv_bfloat16>(x, nbr, w, out, n_out, k_vol, cout, bm, s)
+                : launch_cin1<float>(x, nbr, w, out, n_out, k_vol, cout, bm, s));
   }
   const bool aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(w) % 16 == 0) &&

@@ -10,9 +10,13 @@ The kernel gives a block of ``threads`` a ``bq × br`` tile of queries ×
 references, each thread an 8 × 8 (or 4-wide) micro-tile of f32 dots in
 registers, streams the reference tiles through a ``cp.async`` ring, and
 splits a query tile's references over the ``split`` blocks of a thread-block
-cluster, whose bests merge by (distance, lowest index). ``nn_plan`` chooses tile and split from the shape;
-``flash_nn`` is the port's entry point and ``run_plan`` launches a given
-plan, for ``chip_smoke.py``'s sweep and the card tests.
+cluster, whose bests merge by (distance, lowest index). Each pair's
+distance folds into a running (d, index) (``fold="pair"``, D = 32); at
+D = 3, where that fold costs more than the dot, the ``"min"`` fold keeps a
+running minimum alone and recovers the index by re-walking the one tile
+that last lowered it. ``nn_plan`` chooses fold, tile and split from the
+shape; ``flash_nn`` is the port's entry point and ``run_plan`` launches a
+given plan, for ``chip_smoke.py``'s sweep and the card tests.
 """
 from __future__ import annotations
 
@@ -33,20 +37,31 @@ MAX_SPLIT = 8             # portable thread-block cluster size
 NN_STAGES = 3             # cp.async ring depth of the kernel
 SCRATCH_PAD = 128         # rows of the kernel's k-major scratch are padded to this
 SMEM_LIMIT = 227 * 1024   # the H100's shared memory per block (opt-in)
-# (bq, br, threads) of the instances in csrc/flash_nn.cu: 128 threads with
-# 8 x 8 dots each, or 256 threads with 8 x 8, 8 x 4, 4 x 8 or 4 x 4
+# (bq, br, threads) of the (d, index) fold's instances in csrc/flash_nn.cu
+# (D = 32): 128 threads with 8 x 8 dots each, or 256 threads with 8 x 8,
+# 8 x 4, 4 x 8 or 4 x 4
 NN_TILES = frozenset({(64, 128, 128), (128, 128, 256), (128, 64, 256), (64, 128, 256),
                       (64, 64, 256)})
+# the min fold's instances (D = 3 only): (bq, br, threads) -> (queries,
+# references) a thread and tile and the block's (rows, columns) of threads
+# (TQ, TR, GY, GX in csrc/flash_nn.cu); each thread's queries stay in registers
+NN_MIN_GEOMETRY = {(64, 128, 128): (8, 8, 8, 16), (128, 128, 256): (8, 8, 16, 16),
+                   (128, 128, 128): (8, 16, 16, 8), (256, 128, 256): (8, 16, 32, 8),
+                   (256, 128, 128): (16, 16, 16, 8)}
+NN_MIN_TILES = frozenset(NN_MIN_GEOMETRY)
+NN_MIN_TILE = (256, 128, 128)   # the D = 3 plan's tile: 16 x 16 a thread
+FOLDS = ("pair", "min")
 
 
 class NNPlan(NamedTuple):
     """How kernel B runs one call: a block's tile of queries × references,
-    its threads, and the number of blocks of one cluster that share a query
-    tile's references."""
+    its threads, the number of blocks of one cluster that share a query
+    tile's references, and the fold (``FOLDS``)."""
     bq: int
     br: int
     threads: int
     split: int
+    fold: str = "pair"
 
     def blocks(self, n: int) -> int:
         return -(-n // self.bq) * self.split
@@ -65,29 +80,41 @@ class NNPlan(NamedTuple):
                 for p in range(self.split)]
 
 
-def nn_smem_bytes(bq: int, br: int, d: int) -> int:
-    """Shared memory of one block (``NnTile::smem_bytes`` in
-    ``csrc/flash_nn.cu``): the query tile and the ring of reference tiles,
-    each row k-major with its squared norms, the ring no smaller than the
-    16 per-thread bests of every query row that reuse it, and one (d, index)
-    per query."""
+def nn_smem_bytes(bq: int, br: int, d: int, fold: str = "pair") -> int:
+    """Shared memory of one block (``NnTile::smem_bytes`` and
+    ``Nn3Tile::smem_bytes`` in ``csrc/flash_nn.cu``): the ring of reference
+    tiles, each row k-major with its squared norms, no smaller than the 16
+    per-thread bests of every query row that reuse it, and one (d, index)
+    per query; the pair fold also keeps the query tile there, the min fold
+    its queries in registers."""
     ring = max(NN_STAGES * (d + 1) * br, 32 * bq)
-    return ((d + 1) * bq + ring + 2 * bq) * 4
+    queries = (d + 1) * bq if fold == "pair" else 0
+    return (queries + ring + 2 * bq) * 4
+
+
+def built(plan: NNPlan, d: int) -> bool:
+    """Whether csrc/flash_nn.cu has an instance for ``plan`` at width ``d``."""
+    tiles = {"pair": NN_TILES if d == 32 else frozenset(),
+             "min": NN_MIN_TILES if d == 3 else frozenset()}
+    return (plan.bq, plan.br, plan.threads) in tiles.get(plan.fold, frozenset())
 
 
 def nn_plan(n: int, m: int, d: int) -> NNPlan:
-    """Tile and split for a call, from the shape alone (no device read).
+    """Fold, tile and split for a call, from the shape alone (no device
+    read).
 
-    The tile is ``NN_TILE``. ``n`` queries give ``ceil(n / bq)`` query
-    tiles, 40 at the main path's 5000, too few for 132 SMs; the references
-    are split over the fewest blocks (at most ``MAX_SPLIT`` and the number
-    of reference tiles) that give ``TARGET_BLOCKS`` blocks. ``d`` does not
-    enter: both widths the kernel serves fit shared memory at every tile."""
-    bq, br, threads = NN_TILE
+    D = 3 takes the min fold in ``NN_MIN_TILE``, chosen from chip_smoke.py's
+    sweep at the positive search's and ICP's shapes (where it beat every
+    pair-fold tile, which D = 3 therefore no longer builds); D = 32 the
+    pair fold in ``NN_TILE``, chosen from the sweep at 5000 × 5000 × 32. ``n`` queries give ``ceil(n / bq)`` query tiles, 40 at
+    the main path's 5000, too few for 132 SMs; the references are split
+    over the fewest blocks (at most ``MAX_SPLIT`` and the number of
+    reference tiles) that give ``TARGET_BLOCKS`` blocks."""
+    (bq, br, threads), fold = (NN_MIN_TILE, "min") if d == 3 else (NN_TILE, "pair")
     q_tiles = max(1, -(-n // bq))
     r_tiles = max(1, -(-m // br))
     split = min(-(-TARGET_BLOCKS // q_tiles), MAX_SPLIT, r_tiles)
-    return NNPlan(bq, br, threads, split)
+    return NNPlan(bq, br, threads, split, fold)
 
 
 def nn_plain(queries: torch.Tensor, refs: torch.Tensor,
@@ -159,8 +186,8 @@ def run_plan(queries: torch.Tensor, refs: torch.Tensor,
     m = refs.shape[0]
     if d not in KERNEL_DIMS:
         raise ValueError(f"flash_nn: the kernel serves D in {KERNEL_DIMS}, got {d}")
-    if ((plan.bq, plan.br, plan.threads) not in NN_TILES or not 1 <= plan.split <= MAX_SPLIT
-            or nn_smem_bytes(plan.bq, plan.br, d) > SMEM_LIMIT):
+    if (not built(plan, d) or not 1 <= plan.split <= MAX_SPLIT
+            or nn_smem_bytes(plan.bq, plan.br, d, plan.fold) > SMEM_LIMIT):
         raise ValueError(f"flash_nn: no kernel instance for {plan} at D = {d}")
     out_i = torch.empty((n,), dtype=torch.int32, device=queries.device)
     out_d = torch.empty((n,), dtype=torch.float32, device=queries.device)
@@ -175,7 +202,7 @@ def run_plan(queries: torch.Tensor, refs: torch.Tensor,
             queries.data_ptr(), refs.data_ptr(),
             None if ref_valid is None else ref_valid.data_ptr(),
             scratch.data_ptr(), out_i.data_ptr(), out_d.data_ptr(), n, m, d,
-            plan.bq, plan.br, plan.threads, plan.split, stream)
+            plan.bq, plan.br, plan.threads, plan.split, FOLDS.index(plan.fold), stream)
     cuda_build.check(rc, "flash_nn")
     flash_nn.launches += 1
     return out_i, out_d
@@ -187,5 +214,5 @@ flash_nn.launches = 0
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("flash_nn")
     lib.flash_nn.restype = ctypes.c_int
-    lib.flash_nn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.flash_nn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     return lib

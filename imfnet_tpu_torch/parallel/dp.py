@@ -301,6 +301,7 @@ def kernel_launches() -> Dict[str, int]:
     return {"sparse_conv_gather_gemm": gather_gemm.launches, "flash_nn": flash_nn.launches,
             "sorted_compact": sorted_compact.launches, "word_match": word_match_many.launches,
             "sparse_conv_gather_gemm.tc": gather_gemm.launches_tc,
+            "sparse_conv_gather_gemm.cin1": gather_gemm.launches_cin1,
             "sparse_conv_gather_gemm.scalar": gather_gemm.launches_scalar}
 
 

@@ -5,7 +5,7 @@ plain PyTorch version.
 
 Replaces the TPU kernels of ``imfnet_tpu/sparse/pallas_conv.py``
 (``banded_conv_pallas_union``, ``banded_conv_pallas_planned`` and their jit
-wrapper ``banded_conv_pallas``): one function, so one kernel, in two
+wrapper ``banded_conv_pallas``): one function, so one kernel, in three
 variants that ``conv_plan`` chooses between from dtype and shape:
 
 - ``"tc"``: bf16 operands with ``cin`` and ``cout`` multiples of 8 and
@@ -13,9 +13,14 @@ variants that ``conv_plan`` chooses between from dtype and shape:
   cores (``mma.sync`` bf16 → f32), ``cp.async``-staged gathers, a
   ``bm × bn`` tile per block, ``bk`` input channels a step, the live
   offsets split over ``split`` blocks of one cluster.
-- ``"scalar"``: everything else (f32 operands, other widths, and a
-  ``k_vol`` whose map block would not fit a block's shared memory): f32
-  FMAs on a 64 × 64 tile.
+- ``"cin1"``: one input channel, bf16 or f32, at any alignment (conv1 of
+  every training step and of SimpleNet, k 125): one thread per output row
+  with 32 f32 accumulators (a wider ``cout`` in passes of 32), the block's
+  ``[bm, k_vol]`` map block and the pass's ``W[:, 0, :]`` staged in shared
+  memory, one gathered scalar per offset, summed in offset order.
+- ``"scalar"``: everything else (f32 operands at ``cin > 1``, other widths,
+  and a ``k_vol`` whose map block would not fit a block's shared memory):
+  f32 FMAs on a 64 × 64 tile.
 
 ``gather_gemm`` is the port's entry point; ``run_plan`` launches a given
 plan, for ``conv_sweep.py`` and the card tests.
@@ -44,7 +49,9 @@ SMEM_LIMIT = 227 * 1024   # the H100's shared memory per block (opt-in)
 TC_TILES = frozenset({(TC_BM, 32, 32), (TC_BM, 64, 32), (TC_BM, 128, 32),
                       (TC_BM, 128, 64)})
 SCALAR_TILE = (64, 64, 32)
-_VARIANTS = {"scalar": 0, "tc": 1}
+CIN1_BN = 32              # output channels of one pass of the cin = 1 variant
+CIN1_BMS = (128, 64, 32)  # its rows (threads) a block, the most that fit first
+_VARIANTS = {"scalar": 0, "tc": 1, "cin1": 2}
 
 
 class ConvPlan(NamedTuple):
@@ -71,6 +78,14 @@ def tc_smem_bytes(bn: int, bk: int, k_vol: int) -> int:
     return max(ring, partial) + (TC_BM * k_vol + k_vol + 1) * 4
 
 
+def cin1_smem_bytes(bm: int, k_vol: int) -> int:
+    """Shared memory of one cin = 1 block (``cin1_smem_bytes`` in
+    ``csrc/sparse_conv.cu``): the block's ``[bm, k_vol]`` map block, one
+    pass's ``W[:, 0, :32]`` as f32, and the pass's output tile (rows padded
+    by one f32)."""
+    return (bm * k_vol + k_vol * CIN1_BN + bm * (CIN1_BN + 1)) * 4
+
+
 def conv_plan(n_out: int, cin: int, cout: int, k_vol: int, dtype: torch.dtype,
               aligned: bool = True) -> ConvPlan:
     """The variant, tile and split for a call, from capacities only (the
@@ -88,7 +103,16 @@ def conv_plan(n_out: int, cin: int, cout: int, k_vol: int, dtype: torch.dtype,
     and ``k_vol``) that give ``TARGET_BLOCKS`` blocks and at most
     ``MAX_STEPS`` steps a block: dead tiles exit early, so the coarse
     levels need the split to keep the SMs busy, and a block's steps run one
-    after another."""
+    after another.
+
+    One input channel (bf16 or f32, any alignment) takes the cin = 1
+    variant with the most rows a block (``CIN1_BMS``) whose shared memory
+    (``cin1_smem_bytes``) fits, else the scalar one."""
+    if cin == 1 and dtype in _DTYPES:
+        for bm in CIN1_BMS:
+            if cin1_smem_bytes(bm, k_vol) <= SMEM_LIMIT:
+                return ConvPlan("cin1", bm, CIN1_BN, 1, 1)
+        return ConvPlan("scalar", *SCALAR_TILE, 1)
     if dtype != torch.bfloat16 or cin % 8 or cout % 8 or not aligned:
         return ConvPlan("scalar", *SCALAR_TILE, 1)
     bn = 32 if cout <= 32 else 64 if cout <= 64 else 128
@@ -114,6 +138,12 @@ def _check_plan(plan: ConvPlan, x: torch.Tensor, nbr: torch.Tensor,
     if plan.variant == "scalar":
         return
     cin, cout = w.shape[1], w.shape[2]
+    if plan.variant == "cin1":
+        if (cin != 1 or plan.bm not in CIN1_BMS or (plan.bn, plan.bk, plan.split)
+                != (CIN1_BN, 1, 1) or cin1_smem_bytes(plan.bm, nbr.shape[1]) > SMEM_LIMIT):
+            raise ValueError(f"gather_gemm: {plan} does not fit x {tuple(x.shape)}, "
+                             f"nbr {tuple(nbr.shape)}, w {tuple(w.shape)}")
+        return
     if (plan.variant != "tc" or (plan.bm, plan.bn, plan.bk) not in TC_TILES
             or plan.split not in (1, 2, 4, 8) or plan.bm % plan.split
             or x.dtype != torch.bfloat16 or cin % 8 or cout % 8
@@ -187,7 +217,7 @@ def gather_gemm(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor) -> torch.Te
 def run_plan(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
              plan: ConvPlan) -> torch.Tensor:
     """Kernel A on CUDA tensors in the given plan, counted in
-    ``gather_gemm.launches`` and ``launches_tc`` or ``launches_scalar``. A
+    ``gather_gemm.launches`` and the variant's ``launches_<variant>``. A
     plan that does not fit the call raises. The port calls it through
     ``gather_gemm``; ``conv_sweep.py`` and the card tests call it with
     plans of their own."""
@@ -209,15 +239,14 @@ def run_plan(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
             stream)
     cuda_build.check(rc, "sparse_conv_gather_gemm")
     gather_gemm.launches += 1
-    if plan.variant == "tc":
-        gather_gemm.launches_tc += 1
-    else:
-        gather_gemm.launches_scalar += 1
+    attr = f"launches_{plan.variant}"
+    setattr(gather_gemm, attr, getattr(gather_gemm, attr) + 1)
     return out
 
 
 gather_gemm.launches = 0
 gather_gemm.launches_tc = 0
+gather_gemm.launches_cin1 = 0
 gather_gemm.launches_scalar = 0
 
 

@@ -8,8 +8,9 @@ per-epoch + best checkpoints with the metric value in the name, and resumes
 full state. One Trainer class covers all four loss flavours (the loss is
 selected inside the step via config.trainer).
 
-The loaders yield batches of host tensors; the trainer moves each to its
-device through pinned memory. Random draws: one ``torch.Generator`` on the
+The loaders yield batches of host tensors; the trainer moves each to a
+card through a ring of page-locked staging slabs reused across batches
+(``BatchStager``). Random draws: one ``torch.Generator`` on the
 device, seeded from ``config.seed``, feeds every training step; the
 validation step of batch ``i`` gets a generator seeded with ``i``, so a
 validation epoch does not depend on how many steps were trained before it.
@@ -28,7 +29,7 @@ from __future__ import annotations
 import json
 import logging
 import os
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,13 +89,102 @@ def build_model_from_config(config: Config, compute_dtype=None,
         return load_model(config.model)(**kw)
 
 
+STAGING_ALIGN = 256   # bytes: each field of a staged slab starts on this
+
+
+def staging_layout(batch) -> Tuple[List[Tuple[int, torch.Tensor, int]], List[int], int]:
+    """How a batch packs into one byte slab: (field index, tensor, bytes) of
+    each field on the host, each field's offset (a multiple of
+    ``STAGING_ALIGN``), and the slab's bytes."""
+    fields = [(i, t, t.numel() * t.element_size()) for i, t in enumerate(batch)
+              if t is not None and t.device.type == "cpu"]
+    offsets, total = [], 0
+    for _, _, nbytes in fields:
+        offsets.append(total)
+        total += -(-nbytes // STAGING_ALIGN) * STAGING_ALIGN
+    return fields, offsets, total
+
+
+def pack_fields(slab: torch.Tensor, fields, offsets) -> None:
+    """Copies each host field's bytes into its place of the uint8 ``slab``
+    (a CPU tensor). One plain memcpy a field on this thread: a loader's
+    worker process keeps the host's cores busy, and a copy split over
+    torch's thread pool then waits on its barriers."""
+    dst = slab.numpy()
+    for (_, t, nbytes), off in zip(fields, offsets):
+        np.copyto(dst[off:off + nbytes], t.reshape(-1).view(torch.uint8).numpy())
+
+
+def unpack_fields(batch, slab: torch.Tensor, fields, offsets) -> PairBatch:
+    """The batch with each packed field a view into ``slab`` and every
+    other field as it was moved to the slab's device."""
+    out = [t if t is None or t.device.type == "cpu" else t.to(slab.device) for t in batch]
+    for (i, t, nbytes), off in zip(fields, offsets):
+        out[i] = slab[off:off + nbytes].view(t.dtype).view(t.shape)
+    return PairBatch(*out)
+
+
+STAGING_SLOTS = 2     # slabs a card's ring holds: one being packed, one in flight
+
+
+class BatchStager:
+    """Moves batches of host tensors to one card through a ring of
+    page-locked staging slabs, reused across batches.
+
+    A batch's fields are packed into its slot's slab (``staging_layout``,
+    one host copy each), the slab goes to one new device slab in one
+    ``copy_(non_blocking=True)``, and the device batch is made of views into
+    it. A slot is rewritten only after the CUDA event recorded after its
+    last copy has completed; a batch that outgrows its slot gets a new,
+    larger one. Fields already on the device pass through.
+
+    Two slots: the slot a move rewrites was last copied two moves back.
+    The trainer and the evaluations read a result of each step back to the
+    host (a loss, a transform) before their next move, so that copy has
+    ended and the wait costs nothing; micro-steps of an accumulation, which
+    read nothing back, wait at most for the step before the last."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"BatchStager: a CUDA device, not {self.device}")
+        self._slots: List[Tuple[Optional[torch.Tensor], Optional[torch.cuda.Event]]] = \
+            [(None, None)] * STAGING_SLOTS
+        self._next = 0
+
+    def __call__(self, batch: PairBatch) -> PairBatch:
+        fields, offsets, total = staging_layout(batch)
+        k = self._next
+        self._next = (k + 1) % STAGING_SLOTS
+        slab, done = self._slots[k]
+        if done is not None:
+            done.synchronize()      # the copy that last read this slot has ended
+        if slab is None or slab.numel() < total:
+            slab = torch.empty((total,), dtype=torch.uint8, pin_memory=True)
+        pack_fields(slab, fields, offsets)
+        dev = torch.empty((total,), dtype=torch.uint8, device=self.device)
+        dev.copy_(slab[:total], non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self._slots[k] = (slab, event)
+        return unpack_fields(batch, dev, fields, offsets)
+
+
+_STAGERS: Dict[torch.device, BatchStager] = {}
+
+
 def batch_to_device(batch: PairBatch, device: torch.device) -> PairBatch:
-    """The batch's tensors on ``device``; towards a card through pinned
-    memory, without blocking the host."""
+    """The batch's tensors on ``device``: towards a card through the card's
+    staging ring (one ``BatchStager`` a card, made at its first move),
+    without blocking the host; elsewhere ``t.to(device)``."""
+    device = torch.device(device)
     if device.type != "cuda":
         return PairBatch(*(None if t is None else t.to(device) for t in batch))
-    return PairBatch(*(None if t is None else t.pin_memory().to(device, non_blocking=True)
-                       for t in batch))
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _STAGERS:
+        _STAGERS[device] = BatchStager(device)
+    return _STAGERS[device](batch)
 
 
 def _close(it) -> None:
@@ -311,9 +401,13 @@ class Trainer:
         batch = next(it)
         self.data_timer.toc()
         self.move_timer.tic()
-        batch = batch_to_device(batch, self.device)
+        batch = self.move(batch)
         self.move_timer.toc()
         return batch
+
+    def move(self, batch: PairBatch) -> PairBatch:
+        """A loader's host batch on this Trainer's device."""
+        return batch_to_device(batch, self.device)
 
     def _train_epoch(self, epoch: int):
         config = self.config
@@ -374,7 +468,7 @@ class Trainer:
         it = iter(self.val_data_loader)
         try:
             for i in range(tot):
-                batch = batch_to_device(next(it), self.device)
+                batch = self.move(next(it))
                 gen = torch.Generator(device=self.device).manual_seed(i)
                 out = self.val_step(batch, gen)
                 out = {k: float(v) for k, v in out.items()}

@@ -7,11 +7,11 @@ import pytest
 import torch
 
 from chip_smoke import MAIN_PATH_CONVS
-from imfnet_tpu_torch.sparse.conv_kernel import (MAX_SPLIT, MAX_STEPS, SMEM_LIMIT,
-                                                 TARGET_BLOCKS, TC_TILES, WIDE_MACS,
-                                                 ConvPlan, conv_plan, gather_gemm,
-                                                 gather_gemm_plain, run_plan,
-                                                 tc_smem_bytes)
+from imfnet_tpu_torch.sparse.conv_kernel import (CIN1_BMS, CIN1_BN, MAX_SPLIT, MAX_STEPS,
+                                                 SMEM_LIMIT, TARGET_BLOCKS, TC_TILES,
+                                                 WIDE_MACS, ConvPlan, cin1_smem_bytes,
+                                                 conv_plan, gather_gemm, gather_gemm_plain,
+                                                 run_plan, tc_smem_bytes)
 from imfnet_tpu_torch.train.step import level_capacities
 from imfnet_tpu_torch.utils import cuda_build
 
@@ -55,7 +55,6 @@ def test_coarse_shapes_get_enough_blocks(name, n_out, cin, cout):
 @pytest.mark.parametrize("dtype,cin,cout,aligned", [
     (torch.float32, 32, 32, True),      # f32 keeps its 1e-4 parity: no TF32
     (torch.float32, 256, 256, True),
-    (torch.bfloat16, 1, 32, True),      # the non-occupancy conv1
     (torch.bfloat16, 20, 32, True),     # cin % 8 != 0
     (torch.bfloat16, 32, 20, True),     # cout % 8 != 0
     (torch.bfloat16, 32, 32, False),    # x or w not 16-byte aligned
@@ -63,6 +62,29 @@ def test_coarse_shapes_get_enough_blocks(name, n_out, cin, cout):
 def test_scalar_variant(dtype, cin, cout, aligned):
     plan = conv_plan(65536, cin, cout, 27, dtype, aligned)
     assert plan == ConvPlan("scalar", 64, 64, 32, 1)
+
+
+# (dtype, k_vol, aligned) of a one-channel conv; the first is the case
+# test_scalar_variant held until the cin = 1 variant took it over
+CIN1_CASES = [(torch.bfloat16, 27, True)] + [
+    (dtype, k_vol, aligned) for dtype in (torch.bfloat16, torch.float32)
+    for k_vol in (27, 125, 343) for aligned in (True, False)
+    if (dtype, k_vol, aligned) != (torch.bfloat16, 27, True)]
+
+
+@pytest.mark.parametrize("dtype,k_vol,aligned", CIN1_CASES)
+@pytest.mark.parametrize("cout", [32, 64])
+def test_cin1_variant(dtype, k_vol, aligned, cout):
+    """One input channel takes the cin = 1 variant in both dtypes, at any
+    alignment and kernel volume: the most rows a block whose shared memory
+    fits (k5's 125 offsets: 128 rows; k7's 343: 64), 32 channels a pass."""
+    plan = conv_plan(65536, 1, cout, k_vol, dtype, aligned)
+    assert plan.variant == "cin1"
+    assert plan.bm in CIN1_BMS and (plan.bn, plan.bk, plan.split) == (CIN1_BN, 1, 1)
+    assert cin1_smem_bytes(plan.bm, k_vol) <= SMEM_LIMIT
+    assert plan.bm == max(bm for bm in CIN1_BMS if cin1_smem_bytes(bm, k_vol) <= SMEM_LIMIT)
+    assert plan.bm == (64 if k_vol == 343 else 128)
+    assert plan.blocks(65536, CIN1_BN) == 65536 // plan.bm
 
 
 # (k_vol, cin, cout) -> the tile (bn, bk) that fits, or None for scalar
@@ -126,11 +148,12 @@ def test_gather_gemm_on_cpu_runs_the_plain_version(dtype):
     x = torch.randn((50, 32), generator=gen).to(dtype)
     w = torch.randn((27, 32, 16), generator=gen).to(dtype)
     nbr = torch.randint(-1, 50, (60, 27), generator=gen, dtype=torch.int32)
-    before = (gather_gemm.launches, gather_gemm.launches_tc, gather_gemm.launches_scalar)
+    counts = lambda: (gather_gemm.launches, gather_gemm.launches_tc,  # noqa: E731
+                      gather_gemm.launches_cin1, gather_gemm.launches_scalar)
+    before = counts()
     out = gather_gemm(x, nbr, w)
     assert torch.equal(out, gather_gemm_plain(x, nbr, w))
-    assert (gather_gemm.launches, gather_gemm.launches_tc,
-            gather_gemm.launches_scalar) == before
+    assert counts() == before
 
 
 def test_library_path_follows_the_headers(tmp_path, monkeypatch):

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from imfnet_tpu_torch.match import nn_kernel
-from imfnet_tpu_torch.match.nn_kernel import NN_TILES, NNPlan, flash_nn, nn_plain, nn_plan
+from imfnet_tpu_torch.match.nn_kernel import (NN_MIN_TILES, NN_TILES, NNPlan, flash_nn,
+                                                nn_plain, nn_plan)
 from imfnet_tpu_torch.sparse.conv_kernel import (TC_TILES, ConvPlan, conv_plan,
                                                  gather_gemm, gather_gemm_plain, run_plan)
 from imfnet_tpu_torch.sparse.quant_kernel import (INVALID_KEY, sorted_compact,
@@ -229,17 +230,19 @@ def _assert_nn_equal(q, r, valid, plan=None):
     torch.testing.assert_close(d_k[finite], d_p[finite], rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("bq,br,threads", sorted(NN_TILES))
+@pytest.mark.parametrize("d,fold,bq,br,threads",
+                         [(32, "pair", *t) for t in sorted(NN_TILES)]
+                         + [(3, "min", *t) for t in sorted(NN_MIN_TILES)])
 @pytest.mark.parametrize("split", [1, 2, 3, 4, 5, 6, 7, 8])
-@pytest.mark.parametrize("d", [32, 3])
-def test_flash_nn_every_tile_and_split(gen, bq, br, threads, split, d):
-    """Every instance the kernel has, at an explicit plan, on sizes that are
-    no multiple of a tile; with 1500 references the wider splits of a
-    128-wide tile leave parts with two tiles or one."""
+def test_flash_nn_every_tile_and_split(gen, bq, br, threads, split, d, fold):
+    """Every instance the kernel has (the pair fold at D = 32, the min fold
+    at D = 3), at an explicit plan, on sizes that are no multiple of a tile;
+    with 1500 references the wider splits of a 128-wide tile leave parts
+    with two tiles or one."""
     q = torch.randn((700, d), generator=gen, device="cuda")
     r = torch.randn((1500, d), generator=gen, device="cuda")
     valid = torch.rand(1500, generator=gen, device="cuda") > 0.2
-    _assert_nn_equal(q, r, valid, NNPlan(bq, br, threads, split))
+    _assert_nn_equal(q, r, valid, NNPlan(bq, br, threads, split, fold))
 
 
 @pytest.mark.parametrize("n", [1, 31, 129, 4999, 5003])
@@ -291,9 +294,13 @@ def test_flash_nn_no_references(gen):
 def test_flash_nn_refuses_a_plan_without_an_instance(gen):
     q = torch.randn((50, 32), generator=gen, device="cuda")
     for plan in (NNPlan(256, 128, 256, 1), NNPlan(128, 128, 512, 1),
-                 NNPlan(128, 128, 256, 9), NNPlan(128, 128, 256, 0)):
+                 NNPlan(128, 128, 256, 9), NNPlan(128, 128, 256, 0),
+                 NNPlan(128, 128, 256, 1, "min")):
         with pytest.raises(ValueError, match="no kernel instance"):
             nn_kernel.run_plan(q, q, None, plan)
+    q3 = q[:, :3].contiguous()     # the pair fold is not built at D = 3
+    with pytest.raises(ValueError, match="no kernel instance"):
+        nn_kernel.run_plan(q3, q3, None, NNPlan(64, 128, 128, 1))
 
 
 def _sorted_stream(gen, n, n_keys, invalid):

@@ -11,9 +11,10 @@ import torch
 
 from imfnet_tpu.match.pallas_nn import nn_pallas
 
-from imfnet_tpu_torch.match.nn_kernel import (KERNEL_DIMS, MAX_SPLIT, NN_TILES, SMEM_LIMIT,
-                                                TARGET_BLOCKS, NNPlan, flash_nn, nn_plain,
-                                                nn_plan, nn_smem_bytes, run_plan)
+from imfnet_tpu_torch.match.nn_kernel import (KERNEL_DIMS, MAX_SPLIT, NN_MIN_GEOMETRY, NN_MIN_TILE,
+                                                NN_MIN_TILES, NN_TILE, NN_TILES, SMEM_LIMIT,
+                                                TARGET_BLOCKS, NNPlan, built, flash_nn,
+                                                nn_plain, nn_plan, nn_smem_bytes, run_plan)
 
 H100_SMS = 132
 SIZES = [1, 31, 129, 5000, 5003]
@@ -41,8 +42,9 @@ def split_emulation(q, r, valid, plan):
 @pytest.mark.parametrize("n", SIZES)
 def test_plan_covers_every_query_and_reference_once(n, m, d):
     plan = nn_plan(n, m, d)
-    assert (plan.bq, plan.br, plan.threads) in NN_TILES and 1 <= plan.split <= MAX_SPLIT
-    assert nn_smem_bytes(plan.bq, plan.br, d) <= SMEM_LIMIT
+    assert built(plan, d) and 1 <= plan.split <= MAX_SPLIT
+    assert plan.fold == ("min" if d == 3 else "pair")
+    assert nn_smem_bytes(plan.bq, plan.br, d, plan.fold) <= SMEM_LIMIT
     queries = [i for a, b in plan.query_ranges(n) for i in range(a, b)]
     assert queries == list(range(n))
     assert all(b - a <= plan.bq for a, b in plan.query_ranges(n))
@@ -76,7 +78,7 @@ def test_plan_holds_at_the_kitti_shapes(n, m, d):
     fits, and a scratch whose int32 offsets do not overflow."""
     plan = nn_plan(n, m, d)
     assert plan.split == 1 and plan.blocks(n) == n // plan.bq >= TARGET_BLOCKS
-    assert nn_smem_bytes(plan.bq, plan.br, d) <= SMEM_LIMIT
+    assert nn_smem_bytes(plan.bq, plan.br, d, plan.fold) <= SMEM_LIMIT
     pad = 128
     rows = -(-n // pad) * pad + -(-m // pad) * pad
     assert (d + 1) * rows < 2 ** 31
@@ -85,10 +87,40 @@ def test_plan_holds_at_the_kitti_shapes(n, m, d):
 @pytest.mark.parametrize("bq,br,threads", sorted(NN_TILES))
 @pytest.mark.parametrize("d", KERNEL_DIMS)
 def test_every_instance_fits_shared_memory(bq, br, threads, d):
+    # the pair fold is built at D = 32; D = 3 takes the min fold
+    assert built(NNPlan(bq, br, threads, 1), d) == (d == 32)
     assert nn_smem_bytes(bq, br, d) <= SMEM_LIMIT
     # three stages of k-major reference tiles with their norms, the query
     # tile with its norms, one (d, index) per query
     assert nn_smem_bytes(bq, br, d) >= ((d + 1) * (bq + 3 * br) + 2 * bq) * 4
+
+
+@pytest.mark.parametrize("bq,br,threads", sorted(NN_MIN_TILES))
+def test_every_min_fold_instance_fits_shared_memory(bq, br, threads):
+    """The min fold keeps its queries in registers: three stages of
+    reference tiles, the merge's 16 bests a query row, one (d, index) per
+    query. It is built at D = 3 alone, and its reference tile divides the
+    scratch's 128-row padding."""
+    assert nn_smem_bytes(bq, br, 3, "min") <= SMEM_LIMIT
+    assert nn_smem_bytes(bq, br, 3, "min") == (max(3 * 4 * br, 32 * bq) + 2 * bq) * 4
+    assert 128 % br == 0 and bq % 4 == 0
+    tq, tr, gy, gx = NN_MIN_GEOMETRY[(bq, br, threads)]
+    assert (tq * gy, tr * gx, gy * gx) == (bq, br, threads)
+    assert tq % 4 == 0 and tr % 4 == 0 and gy % 4 == 0 and gx % 8 == 0 and gx <= 16
+    assert built(NNPlan(bq, br, threads, 1, "min"), 3)
+    assert not built(NNPlan(bq, br, threads, 1, "min"), 32)
+
+
+@pytest.mark.parametrize("m", SIZES)
+@pytest.mark.parametrize("n", SIZES)
+def test_d32_plan_is_unchanged_and_d3_takes_the_min_fold(n, m):
+    """D = 32 keeps the pair fold in NN_TILE and its split rule; D = 3 the
+    min fold in NN_MIN_TILE, split by the same rule."""
+    for d, tile, fold in ((32, NN_TILE, "pair"), (3, NN_MIN_TILE, "min")):
+        bq, br, threads = tile
+        split = min(-(-TARGET_BLOCKS // max(1, -(-n // bq))), MAX_SPLIT, max(1, -(-m // br)))
+        assert nn_plan(n, m, d) == NNPlan(bq, br, threads, split, fold)
+    assert NN_TILE in NN_TILES and NN_MIN_TILE in NN_MIN_TILES
 
 
 def _inputs(seed, n, m, d):
