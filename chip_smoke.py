@@ -61,7 +61,17 @@ Phases, each printed as one JSON line:
             the default path, where the card's forward takes kernel A's
             tensor-core variant (equal tables, descriptors within the bf16
             tolerance)
-  paths     pair latency of both paths, interleaved on the same host
+  paths     pair latency of both paths, each as CUDA-graph replays (the
+            default of PairRegistrar on the card) and eager
+            (graphed=False), interleaved on the same host
+  graphs_pair  the default path's post-quantize chain, one CUDA graph per
+            bucket, against the same registrar run eagerly: every output
+            bit for bit over a warm-up, a capture and a replay, the
+            keypoints' NN indices both ways and RANSAC's inlier mask from
+            one graph of nn_auto x2 + ransac_registration against the same
+            calls eagerly (equal), the pose within 1e-3, a replay's launches
+            (A 20, B 2), pairs/s and median both ways in blocks (eager,
+            graphed, graphed, eager)
   builders  every pyramid builder ("search", "packed", "banded", "ywide",
             "transpose") on the bench-scale pair through PairRegistrar with
             kernel C's quantize: tables bit for bit equal to the search
@@ -73,7 +83,9 @@ Phases, each printed as one JSON line:
             launches per pair, the top kernels by device time, and the
             device ms and launches per pair of each CUDA kernel of csrc/ in
             place on the path
-  grid_profile  the same for the packed-grid path
+  grid_profile  the same for the packed-grid path; profile_eager the
+            default path eager. The profiles come after every timed phase
+            up to the trainer (a profiling session slows later launches)
   train_kernel  the kernels at the shapes of the training step, on a side of
             the full-width training batch: kernel A at the 20 dX calls of a
             backward (the forward's convs through their inverse maps, cin and
@@ -116,8 +128,18 @@ Phases, each printed as one JSON line:
             epoch, a checkpoint and a resume: bit-equal on each rank; per
             rank and training step A 82, B 2, D 2, per validation step A 42,
             B 1, D 2. The line comes near the end, with sharded's
+  graphs    the training step replayed as a CUDA graph
+            (make_graphed_train_step, the search builder) against
+            make_train_step at the train phase's width, from one seed, two
+            steps an epoch: after 6 steps parameters, buffers, momentum,
+            learning rate, losses and generator bit-equal; a replay's
+            launches A 82 (80 tensor-core + 2 cin1), B 2; steps/s and median
+            both ways in blocks (eager, graphed, graphed, eager). Then the
+            validation step (one pair, same width) graphed against eager:
+            metrics bit-equal, a replay A 42, B 1, ms both ways
   train_profile  torch.profiler over three steps: device-busy ms per step,
-            idle share, launches per step, each csrc/ kernel in place
+            idle share, launches per step, each csrc/ kernel in place;
+            train_profile_graphed the same for the graphed step
   trainer   Trainer.train() at full width (bench_config: ResUNetBN2C
             32/64/128/256, conv1 k5, bf16, divisors (1, 3, 8, 20), 65 536
             rows a side, 2 pairs a batch, the grid pyramid that the config
@@ -152,7 +174,12 @@ Phases, each printed as one JSON line:
             median step, data share and move ms are printed with
             nvidia-smi's name and power limit, beside the trainer's step on
             one repeated batch (loader_bench.py reads the two loaders over
-            100-step epochs). The train_kernel phase
+            100-step epochs). Every run but the last replays its steps as
+            CUDA graphs (the card's default); the last runs the first
+            configuration with both steps eager (graphed=False) and must
+            equal it bit for bit (losses, validation metrics, the first and
+            the last epoch's state, the generator), its rates beside the
+            graphed run's ("graphs_vs_eager", loader_runs.eager_workers_1). The train_kernel phase
             also holds kernel D to its plain version on the grid pyramid of
             a side of the batch
   trained_pair  a held-out synthetic pair (a seed no training or validation
@@ -275,10 +302,12 @@ from imfnet_tpu_torch.geom.ply import write_ply
 from imfnet_tpu_torch.geom.transforms import apply_transform_np, axis_angle_rotation
 from imfnet_tpu_torch.match.nn_kernel import (MAX_SPLIT, NN_MIN_TILES, NN_TILES, NNPlan,
                                                 flash_nn, nn_plain, nn_plan, run_plan)
+from imfnet_tpu_torch.match.nn import nn_auto
+from imfnet_tpu_torch.match.ransac import ransac_registration, sample_shape
 from imfnet_tpu_torch.models import load_model
 from imfnet_tpu_torch.parallel import dp
 from imfnet_tpu_torch.parallel.mesh import close_mesh, make_mesh, mesh_backend, spawn_ranks
-from imfnet_tpu_torch.pipeline import N_PAD_MAX, PairRegistrar, bench_config
+from imfnet_tpu_torch.pipeline import HYPO_BLOCK, N_PAD_MAX, PairRegistrar, bench_config
 from imfnet_tpu_torch.sparse.conv_kernel import (SCALAR_TILE, TC_TILES, ConvPlan, conv_plan,
                                                  gather_gemm, gather_gemm_plain)
 from imfnet_tpu_torch.sparse.conv_kernel import run_plan as conv_run_plan
@@ -298,11 +327,14 @@ from imfnet_tpu_torch.sparse.word_map_kernel import (empty_launch, word_match_ma
 from imfnet_tpu_torch.train.checkpoint import load_model_from_checkpoint, save_checkpoint
 from imfnet_tpu_torch.train.state import create_train_state
 from imfnet_tpu_torch.train.step import (PairBatch, compute_correspondences, forward_pair,
-                                         level_capacities, make_loss_fn, make_pyramid_fn,
-                                         make_train_step, mean_step_over_ranks)
+                                         level_capacities, make_graphed_train_step,
+                                         make_loss_fn, make_pyramid_fn, make_train_step,
+                                         mean_step_over_ranks)
 from imfnet_tpu_torch.train.trainer import (STAGING_SLOTS, Trainer, batch_to_device,
                                             build_model_from_config)
+from imfnet_tpu_torch.train.validate import make_graphed_val_step, make_val_step
 from imfnet_tpu_torch.utils import cuda_build
+from imfnet_tpu_torch.utils.graphs import jit
 
 
 # The 20 kernel-A convs of one ResUNetIMF forward: (name, level, map, cin,
@@ -1151,22 +1183,136 @@ def phase_reference(path="default", compute_dtype="float32", **impls):
         raise AssertionError(f"reference {path} {compute_dtype}: card and CPU disagree")
 
 
-def phase_paths(reg, reg_grid, pair, rounds=10):
-    """Pair latency of the default and the packed-grid path, interleaved
-    (default, grid, grid, default per round) so that both see the same
-    host."""
+def phase_paths(regs, pair, rounds=10):
+    """Pair latency of the default and the packed-grid path, each replayed
+    as CUDA graphs (the default) and eager, interleaved (the order of
+    ``regs`` and back again per round) so that all see the same host."""
     args = (pair.xyz0, pair.xyz1, pair.image0, pair.image1, pair.T_gt, np.eye(6))
     gen = torch.Generator(device="cuda").manual_seed(2)
-    lat = {"default": [], "grid": []}
+    lat = {name: [] for name in regs}
+    order = list(regs) + list(regs)[::-1]
     for _ in range(rounds):
-        for name, r in (("default", reg), ("grid", reg_grid), ("grid", reg_grid),
-                        ("default", reg)):
+        for name in order:
             t = time.perf_counter()
-            float(r(*args, generator=gen)["rte"])
+            float(regs[name](*args, generator=gen)["rte"])
             lat[name].append((time.perf_counter() - t) * 1e3)
-    emit({"phase": "paths", "order": "default, grid, grid, default", "rounds": rounds,
+    emit({"phase": "paths", "order": ", ".join(order), "rounds": rounds,
           **{f"{k}_median_ms": float(np.median(v)) for k, v in lat.items()},
-          **{f"{k}_ms": v for k, v in lat.items()}})
+          **{f"{k}_ms": v for k, v in lat.items()}, "nvidia_smi": DEVICE["nvidia_smi"]})
+    return lat
+
+
+GRAPH_BLOCK = 10      # calls a block of the both-ways timings: eager, graphed, graphed, eager
+GRAPH_CALLS = 3       # calls compared both ways: a warm-up, the capture, a replay
+
+
+def both_ways(runs, block=GRAPH_BLOCK):
+    """Wall ms of each call of ``runs["eager"]`` and ``runs["graphed"]``
+    (each call ending in a synchronize), in blocks of ``block`` calls in the
+    order eager, graphed, graphed, eager: {"eager": {...}, "graphed": {...}}
+    with calls/s over the blocks, the median, and the median host ms until
+    the call returned (before the synchronize: the host's own time where it
+    returns before the card has finished)."""
+    lat = {"eager": [], "graphed": []}
+    host = {"eager": [], "graphed": []}
+    for name in ("eager", "graphed", "graphed", "eager"):
+        for _ in range(block):
+            t = time.perf_counter()
+            runs[name]()
+            host[name].append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            lat[name].append((time.perf_counter() - t) * 1e3)
+    return {k: {"per_s": len(v) / (sum(v) / 1e3), "median_ms": float(np.median(v)),
+                "min_ms": min(v), "max_ms": max(v), "calls": len(v),
+                "host_ms_median": float(np.median(host[k]))} for k, v in lat.items()}
+
+
+def tensors_gap(got, want):
+    """(bit-equal, largest |got - want| over the largest |want|) of two
+    dicts of tensors with the same keys."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"graphs: outputs {sorted(got)} against {sorted(want)}")
+    equal, worst = True, 0.0
+    for k, w in want.items():
+        g = got[k]
+        if torch.equal(g, w):
+            continue
+        equal = False
+        scale = max(float(w.double().abs().max()), 1e-12)
+        worst = max(worst, float((g.double() - w.double()).abs().max()) / scale)
+    return equal, worst
+
+
+def phase_graphs_pair(reg, reg_eager, pair):
+    """The pair's post-quantize chain replayed as one CUDA graph per bucket
+    (``PairRegistrar()``) against the same registrar run eagerly
+    (``graphed=False``), same weights and draws: every output bit for bit
+    over GRAPH_CALLS pairs (warm-up, capture, replay), and the keypoints'
+    NN indices both ways and RANSAC's inlier mask from one graph of
+    nn_auto ×2 + ransac_registration against the same calls eagerly; the
+    launches one replay counts; pairs/s both ways, interleaved. The pose
+    gap, if any, is held to the reference phase's 1e-3."""
+    args = (pair.xyz0, pair.xyz1, pair.image0, pair.image1, pair.T_gt, np.eye(6))
+    outs_equal, outs_gap = True, 0.0
+    for i in range(GRAPH_CALLS):
+        got = reg(*args, generator=torch.Generator(device="cuda").manual_seed(100 + i))
+        want = reg_eager(*args, generator=torch.Generator(device="cuda").manual_seed(100 + i))
+        eq, gap = tensors_gap(got, want)
+        outs_equal, outs_gap = outs_equal and eq, max(outs_gap, gap)
+    t_gap = float((got["transformation"] - want["transformation"]).abs().max())
+
+    # the match's NN indices and inlier mask, graphed and eager
+    cfg = reg.config
+    pb = reg.prepare(*args[:4])
+    q = reg.quantize(pb)
+    feats = reg.forward(q, reg.pyramid(q), pb.images)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    k, n_rows = cfg.num_rand_keypoints, q.xyz_down.shape[0]
+    i0, ok0 = sample_keypoints_segment(0, q.n0, k, n_rows, device="cuda", generator=gen)
+    i1, ok1 = sample_keypoints_segment(q.n0, q.sv.num_valid - q.n0, k, n_rows,
+                                       device="cuda", generator=gen)
+    kp0, kd0, kp1, kd1 = q.xyz_down[i0], feats[i0], q.xyz_down[i1], feats[i1]
+
+    def match(kp0, kd0, ok0, kp1, kd1, ok1, samples):
+        nn01 = nn_auto(kd0, kd1, ok1)[0]
+        nn10 = nn_auto(kd1, kd0, ok0)[0]
+        res = ransac_registration(kp0, kp1[nn01.long()], ok0, cfg.voxel_size * 1.5,
+                                  ransac_n=cfg.ransac_n, hypo_block=HYPO_BLOCK,
+                                  num_hypotheses=cfg.ransac_max_iteration, samples=samples)
+        return {"nn01": nn01, "nn10": nn10, "inliers": res.inlier_mask,
+                "transformation": res.transformation}
+
+    graphed = jit(match)
+    match_equal = True
+    shape = sample_shape(cfg.ransac_max_iteration, HYPO_BLOCK, cfg.ransac_n)
+    for i in range(GRAPH_CALLS):
+        u = torch.rand(shape, generator=gen, device="cuda")
+        want = match(kp0, kd0, ok0, kp1, kd1, ok1, u)
+        got = graphed(kp0, kd0, ok0, kp1, kd1, ok1, u)
+        match_equal = match_equal and tensors_gap(dict(got), want)[0]
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    reset_counts()
+    float(reg(*args, generator=gen)["rte"])
+    per_replay = read_counts()
+    timed = both_ways({name: (lambda r=r: float(r(*args, generator=gen)["rte"]))
+                       for name, r in (("eager", reg_eager), ("graphed", reg))})
+    entry = {"phase": "graphs_pair", "calls_compared": GRAPH_CALLS,
+             "outputs_bit_equal": outs_equal, "outputs_max_rel_err": outs_gap,
+             "transform_max_abs_err": t_gap, "transform_tol": 1e-3,
+             "nn_indices_and_inlier_mask_bit_equal": match_equal,
+             "captures": reg.graphed.captures, "replays": reg.graphed.replays,
+             "launches_per_replay": per_replay, "pairs": timed,
+             "order": "eager, graphed, graphed, eager", "block": GRAPH_BLOCK,
+             "nvidia_smi": DEVICE["nvidia_smi"]}
+    emit(entry)
+    if per_replay != DEFAULT_LAUNCHES:
+        raise AssertionError(f"graphs_pair: a replay launched {per_replay}, an eager pair "
+                             f"{DEFAULT_LAUNCHES}")
+    if not match_equal or t_gap > 1e-3:
+        raise AssertionError(f"graphs_pair: the graph differs from the eager calls: NN and "
+                             f"inliers equal {match_equal}, pose gap {t_gap}")
+    return entry
 
 
 def phase_profile(reg, pair, wall_ms_per_pair, phase="profile", n_pairs=3):
@@ -1193,9 +1339,13 @@ def profile_units(run, wall_ms_per_pair, phase, unit, n_pairs):
         for _ in range(n_pairs):
             run()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise AssertionError("profile: the trace holds no device kernels")
+    # what the host issued: the runtime's launch and copy calls per call
+    api = {e.key: e.count / n_pairs for e in events if e.device_type != DeviceType.CUDA
+           and e.key.startswith("cu") and ("Launch" in e.key or "Memcpy" in e.key)}
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / n_pairs
     top = sorted(kernels, key=lambda e: e.device_time_total, reverse=True)[:15]
     # the port's own CUDA kernels in place on the path: [ms, launches] per pair
@@ -1207,6 +1357,7 @@ def profile_units(run, wall_ms_per_pair, phase, unit, n_pairs):
           f"wall_ms_per_{unit}_unprofiled": wall_ms_per_pair,
           "device_idle_share": 1 - busy_ms / wall_ms_per_pair,
           f"kernel_launches_per_{unit}": sum(e.count for e in kernels) / n_pairs,
+          f"host_api_calls_per_{unit}": api,
           f"port_kernels_ms_and_launches_per_{unit}": own,
           f"top_kernels_ms_per_{unit}": [
               [e.key[:90], e.device_time_total / 1e3 / n_pairs, e.count / n_pairs]
@@ -1498,10 +1649,92 @@ def phase_train(cfg, batch, n_warm=3, n_steps=10):
           "step_ms": {"median": float(np.median(lat)), "min": min(lat), "max": max(lat)},
           "launches": launches,
           "launches_per_step": {k: v / n_steps for k, v in launches.items()},
-          "losses": losses, "tensors_moved": len(moved), "lr": state.optimizer.param_groups[0]["lr"],
+          "losses": losses, "tensors_moved": len(moved),
+          "lr": float(state.optimizer.param_groups[0]["lr"]),
           "positive_search": search, "search_d2_tol": SEARCH_D2_ATOL,
           "peak_mem_gib": peak_gib})
     return launches, seconds / n_steps, state, step, gen
+
+
+GRAPH_STEPS = 6       # steps compared both ways: three epochs of two
+# one validation step at the train phase's width with the search builder
+GRAPH_VAL_LAUNCHES = dict(TRAINER_VAL_LAUNCHES, word_match=0)
+
+
+def phase_graphs(cfg, batch):
+    """The training step replayed as a CUDA graph
+    (``make_graphed_train_step``) against ``make_train_step``, from one
+    seeded model, generator seed and batch (the train phase's; the search
+    builder), two steps an epoch: after GRAPH_STEPS steps the parameters,
+    buffers and momentum, the learning rate, every loss and the generator
+    must be bit-equal (else the largest gap is printed and the phase
+    fails); the launches one replay counts must be TRAIN_LAUNCHES; steps/s
+    and step ms both ways, interleaved. Then the validation step
+    (``make_graphed_val_step`` against ``make_val_step``, one pair at the
+    same width, a generator seeded per call): metrics bit-equal over
+    GRAPH_CALLS calls, a replay's launches GRAPH_VAL_LAUNCHES, ms both ways.
+    Returns the graphed step, its state and generator, and its median ms."""
+    states, gens = [], []
+    for _ in range(2):
+        states.append(create_train_state(train_model(cfg, "cuda"), cfg, steps_per_epoch=2))
+        gens.append(torch.Generator(device="cuda").manual_seed(0))
+    eager = make_train_step(cfg, map_impl="search")
+    graphed = make_graphed_train_step(cfg, map_impl="search")
+    losses = {"eager": [], "graphed": []}
+    for _ in range(GRAPH_STEPS):
+        losses["eager"].append(eager(states[0], batch, gens[0])[1]["loss"].clone())
+        losses["graphed"].append(graphed(states[1], batch, gens[1])[1]["loss"].clone())
+    torch.cuda.synchronize()
+    states_equal, states_gap = arrays_gap(dp.train_state_arrays(states[1]),
+                                          dp.train_state_arrays(states[0]), "graphs")
+    losses_equal = all(torch.equal(a, b) for a, b in zip(losses["eager"], losses["graphed"]))
+    gen_equal = torch.equal(gens[0].get_state(), gens[1].get_state())
+    lr = [float(st.optimizer.param_groups[0]["lr"]) for st in states]
+    reset_counts()
+    graphed(states[1], batch, gens[1])
+    per_replay = read_counts()
+    timed = both_ways({"eager": lambda: eager(states[0], batch, gens[0]),
+                       "graphed": lambda: graphed(states[1], batch, gens[1])})
+
+    vcfg = cfg.replace(batch_size=1, max_points=TRAIN_N_PAD)
+    vbatch = synthetic_batch(np.random.RandomState(1), batch_size=1, n_points=200_000,
+                             n_pad=TRAIN_N_PAD, image_hw=(cfg.image_H, cfg.image_W))
+    vmodel = train_model(cfg, "cuda")
+    veager = make_val_step(vmodel, vcfg, map_impl="search")
+    vgraphed = make_graphed_val_step(vmodel, vcfg, map_impl="search")
+    val_equal = True
+    for i in range(GRAPH_CALLS):
+        want = veager(vbatch, torch.Generator(device="cuda").manual_seed(i))
+        got = vgraphed(vbatch, torch.Generator(device="cuda").manual_seed(i))
+        val_equal = val_equal and tensors_gap(got, want)[0]
+    reset_counts()
+    vgraphed(vbatch, torch.Generator(device="cuda").manual_seed(0))
+    val_per_replay = read_counts()
+    val_timed = both_ways({"eager": lambda: veager(vbatch, torch.Generator(device="cuda")),
+                           "graphed": lambda: vgraphed(vbatch, torch.Generator(device="cuda"))},
+                          block=5)
+    emit({"phase": "graphs", "steps_compared": GRAPH_STEPS, "steps_per_epoch": 2,
+          "state_bit_equal": states_equal, "state_max_rel_err": states_gap,
+          "losses_bit_equal": losses_equal, "generator_equal": gen_equal, "lr": lr,
+          "losses": [float(v) for v in losses["graphed"]],
+          "captures": graphed.graphed.captures, "replays": graphed.graphed.replays,
+          "launches_per_replay": per_replay, "steps": timed,
+          "val_calls_compared": GRAPH_CALLS, "val_metrics_bit_equal": val_equal,
+          "val_launches_per_replay": val_per_replay, "val_steps": val_timed,
+          "order": "eager, graphed, graphed, eager", "block": GRAPH_BLOCK,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "nvidia_smi": DEVICE["nvidia_smi"]})
+    if not (states_equal and losses_equal and gen_equal and lr[0] == lr[1]):
+        raise AssertionError(f"graphs: the replayed step differs from the eager one: state "
+                             f"{states_equal} ({states_gap}), losses {losses_equal}, "
+                             f"generator {gen_equal}, lr {lr}")
+    if per_replay != TRAIN_LAUNCHES or val_per_replay != GRAPH_VAL_LAUNCHES:
+        raise AssertionError(f"graphs: a replay launched {per_replay} (step) and "
+                             f"{val_per_replay} (validation); want {TRAIN_LAUNCHES} and "
+                             f"{GRAPH_VAL_LAUNCHES}")
+    if not val_equal:
+        raise AssertionError("graphs: the replayed validation step differs from the eager one")
+    return graphed, states[1], gens[1], timed["graphed"]["median_ms"]
 
 
 class CountingTrainer(Trainer):
@@ -1527,6 +1760,7 @@ class CountingTrainer(Trainer):
             self.losses.append(out[1]["loss"].detach().clone())
             return out
 
+        timed_step.graphed = getattr(step, "graphed", None)
         self.train_step = timed_step
 
     def _count(self, kind, before, steps):
@@ -1676,6 +1910,36 @@ def phase_trainer(out_dir):
     rates = {"workers_1": run_rates(trainer), "workers_0": run_rates(thread)}
     del thread
 
+    # ---- the same run with both steps eager (graphed=False), which the
+    # graphed run must equal bit for bit: losses, validation metrics, the
+    # first epoch's state and the last
+    cfge = cfg.replace(out_dir=os.path.join(out_dir, "eager"))
+    eager = CountingTrainer(cfge, *loaders(cfge, None), graphed=False)
+    eager.init_state()
+    eager.train()
+    torch.cuda.synchronize()
+    first_gap = arrays_gap(eager.first_epoch_state, trainer.first_epoch_state,
+                           "trainer: the first epoch, eager against graphed")
+    last_gap = arrays_gap(dp.train_state_arrays(eager.state), dp.train_state_arrays(trainer.state),
+                          "trainer: the last epoch, eager against graphed")
+    graphs_vs_eager = {
+        "losses_equal": (len(eager.losses) == len(trainer.losses)
+                         and all(torch.equal(x, y) for x, y in zip(eager.losses, trainer.losses))),
+        "validation_equal": len(eager.vals) == len(trainer.vals) and all(
+            a.keys() == b.keys() and np.array_equal(list(a.values()), list(b.values()),
+                                                     equal_nan=True)
+            for a, b in zip(eager.vals, trainer.vals)),
+        "first_epoch_bit_equal": first_gap[0], "last_epoch_bit_equal": last_gap[0],
+        "states_max_rel_err": max(first_gap[1], last_gap[1]),
+        "generator_equal": torch.equal(eager.generator.get_state(), trainer.generator.get_state()),
+        "eager_launches_per_train_step": {k: v / eager.steps["train"]
+                                          for k, v in eager.counts["train"].items()},
+        "replays": {"train": trainer.train_step.graphed.replays,
+                    "val": trainer.val_step.graphed.replays}}
+    rates["eager_workers_1"] = run_rates(eager)
+    eager.writer.close()
+    del eager
+
     with open(os.path.join(out_dir, "metrics.jsonl")) as f:
         scalars = [json.loads(ln) for ln in f]
     losses = [r["value"] for r in scalars if r["tag"] == "train/loss"]
@@ -1740,7 +2004,7 @@ def phase_trainer(out_dir):
           "repeated_batch_step_ms": {"steps": REPEATED_STEPS,
                                      "median": float(np.median(repeated_ms)),
                                      "min": min(repeated_ms), "max": max(repeated_ms)},
-          "staging": staging,
+          "staging": staging, "graphs_vs_eager": graphs_vs_eager,
           "workers_1_vs_0": {"first_epoch_steps": n_first, "bit_equal": first_equal,
                                          "losses_equal": losses_equal,
                                          "states_max_rel_err": states_gap},
@@ -1767,6 +2031,12 @@ def phase_trainer(out_dir):
     if not staged_equal:
         raise AssertionError(f"trainer: the staged run differs from the unstaged one: "
                              f"{staged_gap}")
+    if not all(graphs_vs_eager[k] for k in ("losses_equal", "validation_equal",
+                                            "first_epoch_bit_equal", "last_epoch_bit_equal",
+                                            "generator_equal")) or \
+            graphs_vs_eager["eager_launches_per_train_step"] != TRAINER_STEP_LAUNCHES:
+        raise AssertionError(f"trainer: the graphed run differs from the eager one: "
+                             f"{graphs_vs_eager}")
     if alive_after_run or loader_workers_alive():
         raise AssertionError(f"trainer: loader workers outlive the run: {alive_after_run}, "
                              f"{loader_workers_alive()}")
@@ -3495,15 +3765,15 @@ def main():
     phase_reference()
     phase_reference("grid", **grid)
     phase_reference(compute_dtype="bfloat16")
-    # before the profiler: a CUDA profiling session slows the host's later
-    # launches in the same process
-    phase_paths(reg, reg_grid, pair)
+    # every timed phase before the profiler: a CUDA profiling session slows
+    # the host's later launches in the same process
+    reg_eager = PairRegistrar(graphed=False)
+    reg_grid_eager = PairRegistrar(graphed=False, **grid)
+    phase_paths({"default": reg, "default_eager": reg_eager, "grid": reg_grid,
+                 "grid_eager": reg_grid_eager}, pair)
     builder_launches = phase_builders(pair)
-    phase_profile(reg, pair, seconds_per_pair * 1e3)
-    own = phase_profile(reg_grid, pair, grid_seconds_per_pair * 1e3, "grid_profile")
-    if own["compact_single_pass"][1] != 1:
-        raise AssertionError(f"kernel C is not one CUDA kernel a call: {own}")
-    del reg, reg_grid, q, pyr, feats, q_grid
+    graphs_pair = phase_graphs_pair(reg, reg_eager, pair)
+    del q, pyr, feats, q_grid
 
     # ---- the training step -------------------------------------------
     cfg = bench_config().replace(batch_size=TRAIN_BATCH)
@@ -3513,11 +3783,21 @@ def main():
     train_kernels = phase_train_kernels(cfg, batch, gen)
     phase_train_reference()
     train_launches, seconds_per_step, state, step, step_gen = phase_train(cfg, batch)
+    gstep, gstate, ggen, gstep_ms = phase_graphs(cfg, batch)
     # data parallelism, one rank: before the profiler, which slows this
     # process's later launches; the two ranks run last (phase_ranks)
     dp_ctx = phase_dp_one_rank(cfg, batch)
+    phase_profile(reg, pair, seconds_per_pair * 1e3)
+    phase_profile(reg_eager, pair, 1e3 / graphs_pair["pairs"]["eager"]["per_s"],
+                  "profile_eager")
+    own = phase_profile(reg_grid, pair, grid_seconds_per_pair * 1e3, "grid_profile")
+    if own["compact_single_pass"][1] != 1:
+        raise AssertionError(f"kernel C is not one CUDA kernel a call: {own}")
     profile_units(lambda: step(state, batch, step_gen), seconds_per_step * 1e3,
                   "train_profile", "step", 3)
+    profile_units(lambda: gstep(gstate, batch, ggen), gstep_ms, "train_profile_graphed",
+                  "step", 3)
+    del reg, reg_grid, reg_eager, reg_grid_eager, gstep, gstate
     a, b = kernels[0], kernels[1]
     by_variant = lambda counts: {v: counts[f"sparse_conv_gather_gemm.{v}"]  # noqa: E731
                                  for v in ("tc", "cin1", "scalar")}

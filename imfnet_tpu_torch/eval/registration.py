@@ -12,7 +12,8 @@ import torch
 from imfnet_tpu_torch.match.metrics import (apply_transform, inlier_ratio, inverse,
                                             registration_error, transform_error)
 from imfnet_tpu_torch.match.nn import nn_auto
-from imfnet_tpu_torch.match.ransac import ransac_registration
+from imfnet_tpu_torch.match.ransac import ransac_registration, sample_shape
+from imfnet_tpu_torch.utils.graphs import jit
 
 
 def _sample_rows(eligible: torch.Tensor, k: int,
@@ -107,22 +108,48 @@ def make_pair_registration(*, num_keypoints: int = 5000, voxel_size: float = 0.0
     """Returns register(xyz0, f0, n0, xyz1, f1, n1, T_gt, cov, *, generator,
     keypoint_u, samples) → the metrics dict of ``register_kp``: keypoints
     sampled from the valid rows of each side, then ``register_kp``. The
-    draws come from ``generator``; ``keypoint_u`` (two uniform key vectors,
-    one per side) and ``samples`` (RANSAC sample indices) replace them."""
+    draws come from ``generator``, made before the rest in the order the
+    steps would make them (both sides' keys, then RANSAC's uniforms);
+    ``keypoint_u`` (two uniform key vectors, one per side) and ``samples``
+    (RANSAC sample indices, or the uniforms they are made from) replace
+    them.
+
+    As the JAX package jits it (``imfnet_tpu/eval/registration.py:145``),
+    the rest is one CUDA graph per signature on the card
+    (``utils.graphs.jit``; ``register.graphed``) and eager on the CPU. The
+    card's result is the graph's outputs, cloned."""
     register_kp = make_keypoint_registration(
         voxel_size=voxel_size, ransac_n=ransac_n,
         num_hypotheses=num_hypotheses, inlier_thresh=inlier_thresh,
         hypo_block=hypo_block, distance_multiplier=distance_multiplier)
+    shape = sample_shape(num_hypotheses, hypo_block, ransac_n)
+
+    def body(xyz0, f0, n0, xyz1, f1, n1, T_gt, covariance, u0, u1, samples):
+        v0 = torch.arange(xyz0.shape[0], device=xyz0.device) < n0
+        v1 = torch.arange(xyz1.shape[0], device=xyz1.device) < n1
+        i0, ok0 = sample_keypoints(v0, num_keypoints, u=u0)
+        i1, ok1 = sample_keypoints(v1, num_keypoints, u=u1)
+        return register_kp(xyz0[i0], f0[i0], ok0, xyz1[i1], f1[i1], ok1, T_gt,
+                           covariance, samples=samples)
+
+    graphed = jit(body)
 
     def register(xyz0, f0, n0, xyz1, f1, n1, T_gt, covariance, *,
                  generator: Optional[torch.Generator] = None,
                  keypoint_u=None, samples=None):
-        u0, u1 = keypoint_u if keypoint_u is not None else (None, None)
-        v0 = torch.arange(xyz0.shape[0], device=xyz0.device) < n0
-        v1 = torch.arange(xyz1.shape[0], device=xyz1.device) < n1
-        i0, ok0 = sample_keypoints(v0, num_keypoints, generator=generator, u=u0)
-        i1, ok1 = sample_keypoints(v1, num_keypoints, generator=generator, u=u1)
-        return register_kp(xyz0[i0], f0[i0], ok0, xyz1[i1], f1[i1], ok1, T_gt,
-                           covariance, generator=generator, samples=samples)
+        dev = xyz0.device
+        if keypoint_u is None:
+            keypoint_u = tuple(torch.rand(x.shape[0], generator=generator, device=dev)
+                               for x in (xyz0, xyz1))
+        if samples is None:
+            samples = torch.rand(shape, generator=generator, device=dev)
+        args = [xyz0, f0, n0, xyz1, f1, n1, T_gt, covariance, *keypoint_u, samples]
+        if dev.type != "cuda":
+            return body(*args)
+        # counts and poses given on the host become device tensors here,
+        # outside the graph
+        args = [torch.as_tensor(a, device=dev) for a in args]
+        return {k: v.clone() for k, v in graphed(*args).items()}
 
+    register.graphed = graphed
     return register

@@ -33,14 +33,24 @@ def _compact_valid(valid: torch.Tensor):
     return comp[:c], valid.long().sum()
 
 
+def sample_shape(num_hypotheses: int, hypo_block: int, ransac_n: int):
+    """(n_blocks, hypo_block, ransac_n): the shape of RANSAC's samples."""
+    return (-(-num_hypotheses // hypo_block), hypo_block, ransac_n)
+
+
+def samples_from_uniform(u: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """Sample indices in [0, max(n_valid, 1)) from uniforms of the same shape."""
+    hi = n_valid.clamp_min(1)
+    return torch.minimum((u * hi).long(), hi - 1)
+
+
 def draw_samples(n_valid: torch.Tensor, n_blocks: int, hypo_block: int,
                  ransac_n: int, generator: Optional[torch.Generator] = None):
     """Uniform sample indices in [0, max(n_valid, 1)), long[n_blocks,
     hypo_block, ransac_n], drawn on n_valid's device without a host sync."""
-    hi = n_valid.clamp_min(1)
     u = torch.rand((n_blocks, hypo_block, ransac_n), generator=generator,
                    device=n_valid.device)
-    return torch.minimum((u * hi).long(), hi - 1)
+    return samples_from_uniform(u, n_valid)
 
 
 def ransac_registration(
@@ -60,7 +70,8 @@ def ransac_registration(
 ) -> RansacResult:
     """Best rigid transform src → dst. Hypothesis samples are indices into
     the compacted valid rows, ``int[n_blocks, hypo_block, ransac_n]``: drawn
-    from ``generator`` unless ``samples`` injects them. Each block keeps its
+    from ``generator`` unless ``samples`` injects them (or the uniforms
+    ``draw_samples`` makes them from, as floats). Each block keeps its
     best hypothesis (inlier count then rmse on a 512-row validation subset);
     the block winner with the most inliers over all rows wins."""
     c = src.shape[0]
@@ -72,6 +83,8 @@ def ransac_registration(
     if samples.shape != (n_blocks, hypo_block, ransac_n):
         raise ValueError(f"samples must be [{n_blocks}, {hypo_block}, "
                          f"{ransac_n}], got {tuple(samples.shape)}")
+    if samples.is_floating_point():
+        samples = samples_from_uniform(samples, n_valid)
 
     n_subset = min(512, c)
     sub_rows = comp[(torch.arange(n_subset, device=src.device)
@@ -123,7 +136,8 @@ def ransac_registration(
     full_counts = ((d2_all <= distance_threshold ** 2) & valid[None, :]).sum(dim=1)
     full_counts = torch.where(block_scores > 0, full_counts,
                               torch.full_like(full_counts, -1))
-    best_T = block_Ts[full_counts.argmax()]
+    # an index tensor, not a 0-d one: that would be read back to the host
+    best_T = block_Ts.index_select(0, full_counts.argmax().reshape(1))[0]
 
     def inliers_of(T):
         d2 = ((apply_transform(src, T) - dst) ** 2).sum(dim=-1)

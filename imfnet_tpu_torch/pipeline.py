@@ -8,6 +8,13 @@ of ``eval.registration.make_keypoint_registration``. Per pair it runs one
 ``images[2,H,W,3]``, keypoint sampling per fragment, and ``register_kp``
 (both NN directions, RANSAC, metrics). The stages are public methods so a
 caller can time them one by one.
+
+A call on the card runs prepare and quantize eagerly (quantize reads the
+voxel count back once, to pick the bucket), draws the keypoint keys and
+RANSAC's uniforms, then replays one CUDA graph per bucket for the rest:
+pyramid, forward, keypoints, both NN directions, RANSAC and the metrics,
+as the JAX package's ``bench.py`` jits the forward and the registration
+(``utils.graphs.jit``; ``graphed=False`` runs the stages eagerly).
 """
 from __future__ import annotations
 
@@ -20,14 +27,17 @@ from imfnet_tpu_torch.config import Config, threedmatch_config
 from imfnet_tpu_torch.eval.extract import DEFAULT_BUCKETS, pad_points_bucketed, pick_extent
 from imfnet_tpu_torch.eval.registration import (make_keypoint_registration,
                                                 sample_keypoints_segment)
+from imfnet_tpu_torch.match.ransac import sample_shape
 from imfnet_tpu_torch.models import load_model
 from imfnet_tpu_torch.sparse.coords import SparseVoxels
 from imfnet_tpu_torch.sparse.grid import GridSpec, quantize_grid
 from imfnet_tpu_torch.sparse.kernel_map import CoordinatePyramid, coarse_levels_fit
 from imfnet_tpu_torch.train.step import make_pyramid_fn
 from imfnet_tpu_torch.utils.device import resolve_device
+from imfnet_tpu_torch.utils.graphs import jit
 
 N_PAD_MAX = 1 << 15   # voxel capacity ceiling per fragment
+HYPO_BLOCK = 12500    # RANSAC hypotheses scored at once
 
 
 def bench_config() -> Config:
@@ -78,12 +88,15 @@ class PairRegistrar:
     ``quantize_grid`` and ``map_impl`` ("search" or "banded") to
     ``make_pyramid_fn``; the packed-grid path is
     ``compact_impl="kernel", map_impl="banded"``, and every choice gives the
-    same voxels and kernel maps."""
+    same voxels and kernel maps. ``graphed`` (on the card) replays the
+    stages after quantize as one CUDA graph per bucket; ``self.graphed`` is
+    then its ``utils.graphs.Graphed``, else None."""
 
     def __init__(self, config: Optional[Config] = None, *, device=None,
                  state_dict=None, seed: int = 0, compact_impl: str = "auto",
-                 map_impl: str = "search"):
+                 map_impl: str = "search", graphed: bool = True):
         self.device = resolve_device(device)
+        self.graphed = jit(self.chain) if graphed and self.device.type == "cuda" else None
         self.config = config if config is not None else bench_config()
         self.compact_impl = compact_impl
         self.map_impl = map_impl
@@ -94,7 +107,9 @@ class PairRegistrar:
         c = self.config
         self.register_kp = make_keypoint_registration(
             voxel_size=c.voxel_size, ransac_n=c.ransac_n,
-            num_hypotheses=c.ransac_max_iteration, inlier_thresh=c.inlier_thresh)
+            num_hypotheses=c.ransac_max_iteration, inlier_thresh=c.inlier_thresh,
+            hypo_block=HYPO_BLOCK)
+        self.sample_shape = sample_shape(c.ransac_max_iteration, HYPO_BLOCK, c.ransac_n)
 
     # ---- stages -------------------------------------------------------
     def prepare(self, xyz0: np.ndarray, xyz1: np.ndarray, image0: np.ndarray,
@@ -180,13 +195,36 @@ class PairRegistrar:
                                 q.xyz_down[i1], feats[i1], ok1, T_gt, cov,
                                 generator=generator, samples=samples)
 
+    def draws(self, q: Quantized, generator: Optional[torch.Generator] = None,
+              keypoint_u=None, samples=None):
+        """(keypoint_u, samples): the draws ``match`` would make from
+        ``generator`` on ``q``, in its order (each side's keys, then RANSAC's
+        uniforms), made now; given ones are kept."""
+        n_rows = q.xyz_down.shape[0]
+        if keypoint_u is None:
+            keypoint_u = tuple(torch.rand(n_rows, generator=generator, device=self.device)
+                               for _ in range(2))
+        if samples is None:
+            samples = torch.rand(self.sample_shape, generator=generator, device=self.device)
+        return keypoint_u, samples
+
+    def chain(self, q: Quantized, images: torch.Tensor, T_gt: torch.Tensor,
+              cov: torch.Tensor, keypoint_u, samples) -> dict:
+        """pyramid → forward → match on a quantized pair, with the draws
+        given: what the card replays as one graph per bucket."""
+        pyr = self.pyramid(q)
+        feats = self.forward(q, pyr, images)
+        return self.match(q, feats, T_gt, cov, keypoint_u=keypoint_u, samples=samples)
+
     # ---- the whole chain ----------------------------------------------
     def __call__(self, xyz0, xyz1, image0, image1, T_gt, cov,
                  generator: Optional[torch.Generator] = None, *,
                  keypoint_u=None, samples=None) -> dict:
         pb = self.prepare(xyz0, xyz1, image0, image1)
         q = self.quantize(pb)
-        pyr = self.pyramid(q)
-        feats = self.forward(q, pyr, pb.images)
-        return self.match(q, feats, T_gt, cov, generator=generator,
-                          keypoint_u=keypoint_u, samples=samples)
+        T_gt = torch.as_tensor(T_gt, dtype=torch.float32, device=self.device)
+        cov = torch.as_tensor(cov, dtype=torch.float32, device=self.device)
+        ku, s = self.draws(q, generator, keypoint_u, samples)
+        if self.graphed is None:
+            return self.chain(q, pb.images, T_gt, cov, ku, s)
+        return {k: v.clone() for k, v in self.graphed(q, pb.images, T_gt, cov, ku, s).items()}

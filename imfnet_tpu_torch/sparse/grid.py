@@ -844,7 +844,8 @@ def build_pyramid_grid(
     if conv1_kernel_size == 3:
         k3_l0 = k5
     else:
-        k3_l0 = k5[:, torch.tensor(K3_IN_K5, device=k5.device)]
+        # the K3_IN_K5 columns: the inner 3³ of the 5³ offsets, in order
+        k3_l0 = k5.reshape(-1, 5, 5, 5)[:, 1:4, 1:4, 1:4].reshape(-1, 27)
     levels = []
     for lvl, (c, n) in enumerate(tables):
         levels.append(LevelMaps(c, n, k3_l0 if lvl == 0 else nbr[f"same{lvl}"],

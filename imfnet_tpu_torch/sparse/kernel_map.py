@@ -33,11 +33,21 @@ def kernel_offsets(kernel_size: int, dilation: int = 1) -> np.ndarray:
     return offs * dilation
 
 
+def offsets_on(kernel_size: int, scale: int, device) -> torch.Tensor:
+    """int32[K,3]: ``kernel_offsets(kernel_size) * scale`` made on
+    ``device`` itself, with no copy from the host, which a CUDA graph
+    cannot hold."""
+    r = kernel_size // 2
+    g = torch.arange(-r, r + 1, dtype=torch.int32, device=device) * scale
+    return torch.stack(torch.meshgrid(g, g, g, indexing="ij"), dim=-1).reshape(-1, 3)
+
+
 def offset_map(out_coords: torch.Tensor, out_valid: torch.Tensor,
                in_coords: torch.Tensor, in_valid: torch.Tensor,
-               offsets: np.ndarray) -> torch.Tensor:
+               offsets) -> torch.Tensor:
     """nbr[N_out, K]: the row of ``out + offset`` in the input table, or -1.
-    The input table's valid rows must be sorted by key."""
+    The input table's valid rows must be sorted by key. ``offsets`` is an
+    int[K,3] array, or a tensor on the coordinates' device."""
     table = make_keys(in_coords, in_valid, is_table=True)
     offs = torch.zeros((len(offsets), 4), dtype=torch.int32,
                        device=out_coords.device)
@@ -53,7 +63,8 @@ def kernel_map_same(coords: torch.Tensor, valid: torch.Tensor, kernel_size: int,
                     tensor_stride: int) -> torch.Tensor:
     """Map for a stride-1 conv: outputs are the inputs, offsets in units of
     the tensor stride (`MinkowskiConvolution(kernel_size=k, stride=1)`)."""
-    return offset_map(coords, valid, coords, valid, kernel_offsets(kernel_size) * tensor_stride)
+    return offset_map(coords, valid, coords, valid,
+                      offsets_on(kernel_size, tensor_stride, coords.device))
 
 
 def kernel_map_down(in_coords: torch.Tensor, in_valid: torch.Tensor,
@@ -62,7 +73,7 @@ def kernel_map_down(in_coords: torch.Tensor, in_valid: torch.Tensor,
     """Map for a stride-2 downsampling conv (t → 2t): each output coordinate
     (a multiple of 2t) gathers the inputs at out + δ·t, δ centered."""
     return offset_map(out_coords, out_valid, in_coords, in_valid,
-                      kernel_offsets(kernel_size) * in_tensor_stride)
+                      offsets_on(kernel_size, in_tensor_stride, out_coords.device))
 
 
 def kernel_map_up(in_coords: torch.Tensor, in_valid: torch.Tensor,
@@ -73,7 +84,7 @@ def kernel_map_up(in_coords: torch.Tensor, in_valid: torch.Tensor,
     out + δ·t that exist at stride 2t (`MinkowskiConvolutionTranspose`,
     `model/resunet.py:101-139`)."""
     return offset_map(out_coords, out_valid, in_coords, in_valid,
-                      kernel_offsets(kernel_size) * out_tensor_stride)
+                      offsets_on(kernel_size, out_tensor_stride, out_coords.device))
 
 
 class LevelMaps(NamedTuple):
@@ -129,22 +140,22 @@ def build_pyramid(
         tables.append(stride_coords(prev_coords, prev_valid, 2 ** i,
                                     level_capacity[i]))
     valid = [row_mask(c.shape[0], n) for c, n in tables]
-    k3 = kernel_offsets(3)
+    dev = coords.device
 
     levels = []
     for i in range(num_levels):
         c, n = tables[i]
         t = 2 ** i
-        same = offset_map(c, valid[i], c, valid[i], k3 * t)
+        same = offset_map(c, valid[i], c, valid[i], offsets_on(3, t, dev))
         down = None
         if i > 0:
             down = offset_map(c, valid[i], tables[i - 1][0], valid[i - 1],
-                              k3 * 2 ** (i - 1))
+                              offsets_on(3, 2 ** (i - 1), dev))
         up = None
         if i < num_levels - 1:
-            up = offset_map(c, valid[i], tables[i + 1][0], valid[i + 1], k3 * t)
+            up = offset_map(c, valid[i], tables[i + 1][0], valid[i + 1], offsets_on(3, t, dev))
         levels.append(LevelMaps(c, n, same, down, up))
 
     c0 = tables[0][0]
-    k5 = offset_map(c0, valid[0], c0, valid[0], kernel_offsets(conv1_kernel_size))
+    k5 = offset_map(c0, valid[0], c0, valid[0], offsets_on(conv1_kernel_size, 1, dev))
     return CoordinatePyramid(tuple(levels), k5)

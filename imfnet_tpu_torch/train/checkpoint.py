@@ -24,7 +24,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from imfnet_tpu_torch.config import Config
-from imfnet_tpu_torch.train.state import TrainState
+from imfnet_tpu_torch.train.state import TrainState, load_optimizer_state
 
 STATE_FILE = "state.pt"
 
@@ -91,7 +91,7 @@ def load_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, Dict[str,
     state.model.load_state_dict(blob["model"], strict=True)
     # Optimizer.load_state_dict casts each per-parameter tensor (the
     # momentum buffers) to its parameter's device and dtype
-    state.optimizer.load_state_dict(blob["optimizer"])
+    load_optimizer_state(state.optimizer, blob["optimizer"])
     if state.scheduler is not None and blob["scheduler"] is not None:
         state.scheduler.load_state_dict(blob["scheduler"])
     state.step = int(blob["step"])

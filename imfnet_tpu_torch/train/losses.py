@@ -16,7 +16,11 @@ replacement is the uniform-score top-k over validity-masked candidates.
 Random draws come from ``generator``; ``draws`` replaces them with given
 tensors, in the order the JAX function splits its key, so that a test can
 feed both packages the same numbers: uniform scores ``f32[n]`` for a
-sampler over ``n`` candidates, integer rows for ``contrastive_loss``.
+sampler over ``n`` candidates; for ``contrastive_loss`` integer rows, or the
+uniforms its rows are made from. ``draw_shapes`` gives the shapes of a
+loss's uniform draws in the order the loss makes them from its generator,
+so that a caller can draw them outside a CUDA graph and pass them in
+(``draws_for``), with the generator left as the loss would leave it.
 Nothing here reads a value back to the host.
 """
 from __future__ import annotations
@@ -42,6 +46,32 @@ def _sample_without_replacement(valid: torch.Tensor, k: int,
 
 def _draw(draws: Optional[Sequence[torch.Tensor]], i: int) -> Optional[torch.Tensor]:
     return None if draws is None else draws[i]
+
+
+def draw_shapes(loss_kind: str, n0: int, n1: int, n_pairs: int,
+                num_neg: int = 0) -> Tuple[Tuple[int, ...], ...]:
+    """The shapes of the uniform draws the loss ``loss_kind``
+    ("hardest_contrastive", "contrastive", "triplet", "hardest_triplet")
+    makes from its generator, in order, for ``n0`` and ``n1`` rows a side and
+    ``n_pairs`` candidate positives (``num_neg`` as ``contrastive_loss``
+    takes it)."""
+    if loss_kind == "hardest_contrastive":
+        return (n0,), (n1,), (n_pairs,)
+    if loss_kind == "contrastive":
+        k = num_neg or 2 * n_pairs
+        return (k,), (k,)
+    if loss_kind == "triplet":
+        return (n_pairs,), (n_pairs,), (n1,)
+    if loss_kind == "hardest_triplet":
+        return (n0,), (n1,), (n_pairs,), (n_pairs,), (n1,)
+    raise ValueError(f"draw_shapes: unknown loss {loss_kind!r}")
+
+
+def draws_for(shapes: Sequence[Tuple[int, ...]], generator: Optional[torch.Generator],
+              device) -> list:
+    """Uniform draws of the given shapes from ``generator``, one after
+    another: the numbers the loss would draw itself."""
+    return [torch.rand(s, generator=generator, device=device) for s in shapes]
 
 
 def _pair_keys(i: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
@@ -128,7 +158,7 @@ def contrastive_loss(
     num_neg: int = 0,
     neg_thresh: float = 1.4,
     generator: Optional[torch.Generator] = None,
-    draws: Optional[Sequence[torch.Tensor]] = None,   # rows int[num_neg] of f0, of f1
+    draws: Optional[Sequence[torch.Tensor]] = None,   # rows int[num_neg] of f0, of f1, or u[num_neg] ×2
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Random-negative contrastive loss (`lib/trainer.py:236-305`): the mean
     squared distance over all valid pairs; hinge² on the sqrt distance of
@@ -137,14 +167,15 @@ def contrastive_loss(
     the valid count is a random valid row."""
     if num_neg == 0:
         num_neg = 2 * pairs.shape[0]
-    if draws is None:
-        def rows(valid):
-            n = valid.sum().clamp_min(1)
-            u = torch.rand((num_neg,), generator=generator, device=valid.device)
-            return (u * n).long().clamp_max(n - 1)
-        ri, rj = rows(valid0), rows(valid1)
-    else:
+    if draws is not None and not draws[0].is_floating_point():
         ri, rj = draws[0].long(), draws[1].long()
+    else:
+        def rows(valid, u):
+            n = valid.sum().clamp_min(1)
+            if u is None:
+                u = torch.rand((num_neg,), generator=generator, device=valid.device)
+            return (u * n).long().clamp_max(n - 1)
+        ri, rj = rows(valid0, _draw(draws, 0)), rows(valid1, _draw(draws, 1))
     table = _make_pair_set(pairs, pair_valid)
     neg_ok = ~_in_pair_set(table, ri, rj)
 

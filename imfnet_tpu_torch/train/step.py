@@ -8,6 +8,12 @@ body of `HardestContrastiveLossTrainer._train_epoch`
 Where the JAX package returns new parameter and statistics trees, the port
 updates the module's parameters, buffers and the optimizer in place. A step
 reads nothing back to the host: metrics are 0-d tensors.
+
+``make_train_step`` is the plain step, as the JAX ``make_train_step`` is
+the un-jitted one; ``make_graphed_train_step`` is the step as the JAX
+trainer compiles it (``jax.jit``, ``imfnet_tpu/train/trainer.py:120``): on
+the card one CUDA graph per batch signature (``utils.graphs.jit``) holds
+the forwards, the loss, the backward and the optimizer's update.
 """
 from __future__ import annotations
 
@@ -21,9 +27,11 @@ from imfnet_tpu_torch.parallel.mesh import Mesh, float_buffers, mean_over_ranks
 from imfnet_tpu_torch.sparse.coords import SparseVoxels, row_mask
 from imfnet_tpu_torch.sparse.grid import GRID_MAP_IMPLS, GridSpec, build_pyramid_grid
 from imfnet_tpu_torch.sparse.kernel_map import build_pyramid
-from imfnet_tpu_torch.train.losses import (contrastive_loss, hardest_contrastive_loss,
-                                           hardest_triplet_loss, triplet_loss)
+from imfnet_tpu_torch.train.losses import (contrastive_loss, draw_shapes, draws_for,
+                                           hardest_contrastive_loss, hardest_triplet_loss,
+                                           triplet_loss)
 from imfnet_tpu_torch.train.state import TrainState
+from imfnet_tpu_torch.utils.graphs import jit
 
 MAP_IMPLS = ("search",) + GRID_MAP_IMPLS
 
@@ -278,6 +286,60 @@ def make_train_step(config: Config, map_impl: Optional[str] = None,
         _apply(state)
         return state, metrics
 
+    return train_step
+
+
+def loss_draws(config: Config, batch: PairBatch,
+               generator: Optional[torch.Generator] = None) -> list:
+    """The uniform draws the config's loss would make from ``generator`` on
+    this batch, made now in the same order and shapes
+    (``losses.draw_shapes``): passed as ``draws``, they give the step that
+    draws itself, and leave the generator where it would."""
+    n0, n1 = batch.coords0.shape[0], batch.coords1.shape[0]
+    n_pairs = n0 if batch.pairs is None else batch.pairs.shape[0]
+    return draws_for(draw_shapes(LOSS_FNS[config.trainer], n0, n1, n_pairs),
+                     generator, batch.coords0.device)
+
+
+def make_graphed_train_step(config: Config, map_impl: Optional[str] = None):
+    """train_step(state, batch, generator=None, draws=None) → (state,
+    metrics): ``make_train_step``'s one-device step, structured as the JAX
+    trainer's jitted step. Outside the graph: the loss's draws
+    (``loss_draws``, unless ``draws`` are given), the schedule's step (which
+    fills the tensor learning rate, ``train.state.make_optimizer``) and
+    ``state.step``. Inside: the forwards, the loss, the backward and the
+    optimizer's update. On the card that part is one CUDA graph per batch
+    signature (``utils.graphs.jit``; the first call of each runs eagerly,
+    the second is captured), so the state's optimizer must be capturable;
+    on the CPU it runs eagerly. Given the same draws the result equals
+    ``make_train_step``'s; the metrics are the graph's outputs, which the
+    next step overwrites (clone what is kept). ``train_step.graphed`` is the
+    ``utils.graphs.Graphed`` (its ``replays``, its graphs' launches)."""
+
+    def body(state: TrainState, batch: PairBatch, draws: Sequence[torch.Tensor]):
+        loss, metrics = make_loss_fn(state.model, config, map_impl)(batch, None, draws)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.optimizer.zero_grad(set_to_none=True)
+        return metrics
+
+    graphed = jit(body)
+
+    def train_step(state: TrainState, batch: PairBatch,
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[Sequence[torch.Tensor]] = None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if draws is None:
+            draws = loss_draws(config, batch, generator)
+        run = graphed if batch.coords0.device.type == "cuda" else body
+        metrics = run(state, batch, list(draws))
+        if state.scheduler is not None:
+            state.scheduler.step()
+        state.step += 1
+        return state, metrics
+
+    train_step.graphed = graphed
     return train_step
 
 

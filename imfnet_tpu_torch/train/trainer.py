@@ -15,6 +15,18 @@ device, seeded from ``config.seed``, feeds every training step; the
 validation step of batch ``i`` gets a generator seeded with ``i``, so a
 validation epoch does not depend on how many steps were trained before it.
 
+On the card the steps run as the JAX trainer jits them
+(``imfnet_tpu/train/trainer.py:120``, ``imfnet_tpu/train/validate.py:38``):
+the training step through ``make_graphed_train_step`` and the validation
+step through ``make_graphed_val_step``, one CUDA graph per batch signature,
+replayed. Each batch's staged slab goes into the graph's static slab with
+one copy, after the previous replay on the same stream; the random draws
+are made outside the graph in the eager order, so the streams, checkpoints
+and resumes are those of the eager trainer. The training step stays eager
+(``make_train_step``) on the CPU, under a mesh (its all-reduces) and with
+``iter_size`` > 1 (the accumulation pair); ``graphed=False`` keeps both
+steps eager.
+
 Data parallelism (``config.data_parallel`` > 1) runs one Trainer a rank,
 each given the rank's ``parallel.mesh.Mesh`` (``cli train --num-devices``
 starts them): the train loader is sharded over the ranks, each step takes
@@ -40,8 +52,9 @@ from imfnet_tpu_torch.parallel.dp import rank_generator, replicate
 from imfnet_tpu_torch.parallel.mesh import Mesh, all_gather
 from imfnet_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from imfnet_tpu_torch.train.state import TrainState, create_train_state
-from imfnet_tpu_torch.train.step import PairBatch, make_accum_steps, make_train_step
-from imfnet_tpu_torch.train.validate import make_val_step
+from imfnet_tpu_torch.train.step import (PairBatch, make_accum_steps,
+                                         make_graphed_train_step, make_train_step)
+from imfnet_tpu_torch.train.validate import make_graphed_val_step, make_val_step
 from imfnet_tpu_torch.utils.device import resolve_device
 from imfnet_tpu_torch.utils.timer import AverageMeter, Timer
 
@@ -243,11 +256,14 @@ class Trainer:
         steps_per_epoch: Optional[int] = None,
         device=None,
         mesh: Optional[Mesh] = None,
+        graphed: bool = True,
     ):
         """``device`` defaults to the card and raises without one; pass
         ``device="cpu"`` for the plain PyTorch path. ``mesh`` makes this
         Trainer one rank of a data-parallel run on ``mesh.device``: a train
-        loader that is not sharded yet is given this rank's shard."""
+        loader that is not sharded yet is given this rank's shard.
+        ``graphed`` runs the steps on the card as CUDA graphs (see the
+        module's docstring for what stays eager)."""
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.config = config
         self.data_loader = data_loader
@@ -273,10 +289,15 @@ class Trainer:
         # the schedule needs the optimizer steps per epoch (of this rank's
         # loader) before the optimizer exists
         self.steps_per_epoch = max(batches // max(config.iter_size, 1), 1)
-        self.train_step = make_train_step(config, mesh=mesh)
+        self.graphed = graphed and self.device.type == "cuda"
+        if self.graphed and mesh is None and config.iter_size <= 1:
+            self.train_step = make_graphed_train_step(config)
+        else:
+            self.train_step = make_train_step(config, mesh=mesh)
         if config.iter_size > 1:
             self.grad_step, self.apply_step = make_accum_steps(config)
-        self.val_step = make_val_step(self.model, config)
+        self.val_step = (make_graphed_val_step if self.graphed else make_val_step)(
+            self.model, config)
 
         self.best_val_metric = config.best_val_metric
         self.best_val = -np.inf if self.best_val_metric in self._MAX_METRICS else np.inf

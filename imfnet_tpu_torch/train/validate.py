@@ -6,6 +6,9 @@ The per-pair body of `ContrastiveLossTrainer._valid_epoch`
 descriptor NN (`find_corr`, :416-430), the IRLS pose fit
 (`util/transform_estimation.py:89-116`), then loss/RTE/RRE/success/
 hit-ratio/feat-match-ratio. Runs with a batch of one pair.
+``make_graphed_val_step`` is the step as the JAX package jits it
+(``imfnet_tpu/train/validate.py:38``): on the card a CUDA graph per batch
+signature, its subsample draws made outside.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from imfnet_tpu_torch.match.nn import nn_auto
 from imfnet_tpu_torch.sparse.coords import row_mask
 from imfnet_tpu_torch.train.losses import _sample_without_replacement
 from imfnet_tpu_torch.train.step import PairBatch, forward_pair
+from imfnet_tpu_torch.utils.graphs import jit
 
 
 def make_val_step(model, config: Config, subsample_size: Optional[int] = None,
@@ -64,7 +68,8 @@ def make_val_step(model, config: Config, subsample_size: Optional[int] = None,
         r_est = torch.sqrt(((apply_transform(x0c, T_est) - x1c) ** 2).sum(-1) + 1e-12)
         rs = torch.sort(torch.where(ok0, r_est, torch.full_like(r_est, float("inf")))).values
         n_ok = ok0.sum()
-        med = rs[(n_ok // 2).clamp(0, rs.shape[0] - 1)]
+        # an index tensor, not a 0-d one: that would be read back to the host
+        med = rs.index_select(0, (n_ok // 2).clamp(0, rs.shape[0] - 1).reshape(1))[0]
         med = torch.where(n_ok > 0, med, torch.zeros_like(med))
         return {
             "loss": loss,
@@ -78,4 +83,30 @@ def make_val_step(model, config: Config, subsample_size: Optional[int] = None,
             "irls_resid_inlier": (r_est * inl).sum() / inl.sum().clamp_min(1.0),
         }
 
+    return val_step
+
+
+def make_graphed_val_step(model, config: Config, subsample_size: Optional[int] = None,
+                          map_impl: Optional[str] = None):
+    """val_step(batch, generator=None, draws=None) → metrics, as
+    ``make_val_step``'s: the subsample's uniform scores (u[N0], u[N1]) are
+    drawn from ``generator`` outside, in the step's order, unless ``draws``
+    gives them; the rest is one CUDA graph per batch signature on the card
+    (``utils.graphs.jit``) and eager on the CPU. The metrics are the
+    graph's outputs, which the next call overwrites.
+    ``val_step.graphed`` is the ``utils.graphs.Graphed``."""
+    step = make_val_step(model, config, subsample_size, map_impl)
+    graphed = jit(lambda batch, draws: step(batch, None, draws))
+
+    def val_step(batch: PairBatch, generator: Optional[torch.Generator] = None,
+                 draws: Optional[Sequence[torch.Tensor]] = None):
+        if draws is None:
+            dev = batch.coords0.device
+            draws = [torch.rand((batch.coords0.shape[0],), generator=generator, device=dev),
+                     torch.rand((batch.coords1.shape[0],), generator=generator, device=dev)]
+        if batch.coords0.device.type == "cuda":
+            return graphed(batch, list(draws))
+        return step(batch, None, draws)
+
+    val_step.graphed = graphed
     return val_step
