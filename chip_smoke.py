@@ -137,6 +137,41 @@ Phases, each printed as one JSON line:
             both ways in blocks (eager, graphed, graphed, eager). Then the
             validation step (one pair, same width) graphed against eager:
             metrics bit-equal, a replay A 42, B 1, ms both ways
+  nn_widths kernel B at widths of its chunk fold (any D but 3 and 32, padded
+            to a multiple of 8; fault 5): at 5 000 x 5 000 at D = 16, 64 and
+            256 against its plain version (each choice's exact distance
+            within the d^2 gate, two calls bit-equal), graph-timed beside its
+            bound, the plain version and cdist + min; ragged sizes; the chunk
+            fold at D = 32 bit-equal to the pair fold. Then model_n_out 16:
+            the graphed validation step at the train phase's width and
+            eval-3dmatch's register against their eager calls (bit-equal, a
+            replay's launches as eager), and cli train --model-n-out 16
+            through an epoch and its validation on the card
+  graphs_kitti  eval-kitti's pair (make_eval_pair: both forwards and the
+            registration in one CUDA graph, the draws of pair i outside)
+            against graphed=False at kitti_config width on KITTI scans the
+            phase writes: every output bit-equal over each pair and three
+            calls of pair 0, a replay's launches A 40, B 2, D 2, ms both
+            ways; the test split's ICP in the loader's producer thread
+            beside this thread's pair graphs, and in a loader worker process
+            (workers=1), each refined ground truth bit-equal to eager ICP's
+  graphs_icp  ICP (icp_point_to_point) replayed as one CUDA graph against
+            the eager loop on pair 0 of those scans (2^17 a side, 30
+            iterations): T bit-equal, a replay's launches B 30, ms both ways
+  graphs_extract  the bucketed extractor (quantize, pyramid, forward: three
+            graphs a fragment, the host reads between them) against
+            graphed=False at full width on the bench pair's side 0, grid and
+            exact path: points and descriptors bit-equal, launches a fragment
+            (A 20, + C 1 + D 1 on the grid path), ms both ways; then every
+            bucket's pyramid and forward graph captured on both paths, and
+            the reserved memory before and after
+  graphs_3dmatch  eval-3dmatch's register (make_scene_register, one graph per
+            keypoint pad, width and swap, RANSAC's uniforms outside) against
+            the eager call at bench_config on 5 000 keypoints a side, 32-d:
+            outputs bit-equal for both swaps, a replay's launches B 2, ms
+            both ways. The five phases come after graphs; their profiles
+            (graphs_*_profile, graphs_*_profile_eager: busy ms, idle share,
+            runtime launch calls a call) after train_profile_graphed
   train_profile  torch.profiler over three steps: device-busy ms per step,
             idle share, launches per step, each csrc/ kernel in place;
             train_profile_graphed the same for the graphed step
@@ -296,18 +331,21 @@ from imfnet_tpu_torch.data.synthetic import _surface_cloud, synthetic_batch, syn
 from imfnet_tpu_torch.eval import threedmatch
 from imfnet_tpu_torch.eval.extract import (DEFAULT_BUCKETS, make_bucketed_extractor,
                                            pad_points_bucketed)
-from imfnet_tpu_torch.eval.kitti import registration_errors
+from imfnet_tpu_torch.data.collate import voxelize_np
+from imfnet_tpu_torch.eval.kitti import make_eval_pair, registration_errors
 from imfnet_tpu_torch.eval.registration import make_pair_registration, sample_keypoints_segment
 from imfnet_tpu_torch.geom.ply import write_ply
 from imfnet_tpu_torch.geom.transforms import apply_transform_np, axis_angle_rotation
-from imfnet_tpu_torch.match.nn_kernel import (MAX_SPLIT, NN_MIN_TILES, NN_TILES, NNPlan,
-                                                flash_nn, nn_plain, nn_plan, run_plan)
+from imfnet_tpu_torch.match.icp import icp_graphed, icp_point_to_point
+from imfnet_tpu_torch.match.nn_kernel import (MAX_SPLIT, NN_CHUNK_TILES, NN_MIN_TILES, NN_TILES,
+                                                NNPlan, flash_nn, nn_plain, nn_plan, run_plan)
 from imfnet_tpu_torch.match.nn import nn_auto
 from imfnet_tpu_torch.match.ransac import ransac_registration, sample_shape
 from imfnet_tpu_torch.models import load_model
 from imfnet_tpu_torch.parallel import dp
 from imfnet_tpu_torch.parallel.mesh import close_mesh, make_mesh, mesh_backend, spawn_ranks
-from imfnet_tpu_torch.pipeline import HYPO_BLOCK, N_PAD_MAX, PairRegistrar, bench_config
+from imfnet_tpu_torch.pipeline import (HYPO_BLOCK, N_PAD_MAX, PairRegistrar, bench_config,
+                                       init_model)
 from imfnet_tpu_torch.sparse.conv_kernel import (SCALAR_TILE, TC_TILES, ConvPlan, conv_plan,
                                                  gather_gemm, gather_gemm_plain)
 from imfnet_tpu_torch.sparse.conv_kernel import run_plan as conv_run_plan
@@ -384,8 +422,9 @@ DEFAULT_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
                     "sparse_conv_gather_gemm.cin1": 0, "sparse_conv_gather_gemm.scalar": 0}
 # the CUDA kernels of csrc/ by name, as the profiler reports them
 PORT_CUDA_KERNELS = ("gather_gemm_tc", "gather_gemm_cin1", "gather_gemm_kernel",
-                     "nn_transpose_kernel", "flash_nn_kernel", "flash_nn3_kernel",
-                     "compact_single_pass", "word_match_kernel")
+                     "nn_transpose_kernel", "nn_transpose_any_kernel", "flash_nn_kernel",
+                     "flash_nn3_kernel", "flash_nnk_kernel", "compact_single_pass",
+                     "word_match_kernel")
 GRID_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
                  "sorted_compact": 1, "word_match": 1,
                  "sparse_conv_gather_gemm.tc": 20,
@@ -764,8 +803,9 @@ def nn_sweep(q, r, v, phase="kernel", splits=range(1, MAX_SPLIT + 1), iters=20, 
     n, m, d = q.shape[0], r.shape[0], q.shape[1]
     plan = nn_plan(n, m, d)
     plain = nn_plain(q, r, v)
-    instances = ([(t, "min") for t in sorted(NN_MIN_TILES)] if d == 3
-                 else [(t, "pair") for t in sorted(NN_TILES)])
+    fold = {3: "min", 32: "pair"}.get(d, "chunk")
+    tiles = {"min": NN_MIN_TILES, "pair": NN_TILES, "chunk": NN_CHUNK_TILES}[fold]
+    instances = [(t, fold) for t in sorted(tiles)]
     rows = []
     for (bq, br, threads), fold in instances:
         for split in splits:
@@ -3725,6 +3765,437 @@ def phase_roofline(reg, pyr, kernel_a, stages):
     return entry
 
 
+# ---- kernel B at every width; the evaluation side's graphs: ICP, the
+# extractors, eval-kitti's pair, eval-3dmatch's register ----------------------------
+
+NN_WIDTHS = (16, 64, 256)           # model_n_out values that take the chunk fold
+NN_WIDTH_RAGGED = ((1, 129), (129, 1), (31, 129), (4999, 5003))
+WIDTH_KEYPOINTS = 5000              # a 3DMatch pair's keypoints a side
+ICP_BLOCK = 3                       # ICP calls a block of its both-ways timing
+PAIR_BLOCK = 5                      # eval-kitti pairs a block of theirs
+SCENE_KEYPOINTS = 5000
+
+
+def unit_rows(gen, n, d):
+    """Unit rows of Gaussian directions, as descriptors are."""
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    return (x / x.norm(dim=1, keepdim=True)).contiguous()
+
+
+def outputs_equal(pairs):
+    """(every pair of results bit-equal, the largest relative gap) over
+    (got, want) dicts of tensors."""
+    gaps = [tensors_gap(got, want) for got, want in pairs]
+    return all(e for e, _ in gaps), max(g for _, g in gaps)
+
+
+def keypoint_case(gen, d, n=SCENE_KEYPOINTS):
+    """Two keypoint sets of one 3 m cloud under a known pose (gt.log's
+    convention: it maps side 1 onto side 0), d-wide unit descriptors that
+    identify the rows with noise, the last tenth of each side invalid."""
+    xyz0 = torch.rand((n, 3), generator=gen, device="cuda") * 3
+    c, s = np.cos(0.3), np.sin(0.3)
+    R = torch.tensor([[c, 0, s], [0, 1, 0], [-s, 0, c]], dtype=torch.float32, device="cuda")
+    t = torch.tensor([0.3, 0.1, -0.2], device="cuda")
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    xyz1 = xyz0[perm] @ R.T + t
+    f0 = unit_rows(gen, n, d)
+    f1 = f0[perm] + 0.05 * torch.randn((n, d), generator=gen, device="cuda")
+    f1 = (f1 / f1.norm(dim=1, keepdim=True)).contiguous()
+    ok = torch.arange(n, device="cuda") < n - n // 10
+    T = torch.eye(4, device="cuda")
+    T[:3, :3], T[:3, 3] = R, t
+    return [xyz0, f0, ok, xyz1, f1, ok.clone()], torch.linalg.inv(T), torch.eye(6, device="cuda")
+
+
+def register_both_ways(cfg, gen, d, block=GRAPH_BLOCK):
+    """eval-3dmatch's register (``make_scene_register``) graphed against
+    eager on a d-wide keypoint case: outputs over GRAPH_CALLS pairs of each
+    swap, a replay's launches against an eager call's, and both timed."""
+    case, T_gt, cov = keypoint_case(gen, d)
+    graphed = threedmatch.make_scene_register(cfg, cfg.inlier_thresh, "cuda")
+    eager = threedmatch.make_scene_register(cfg, cfg.inlier_thresh, "cuda", graphed=False)
+    pairs = []
+    for swap in (False, True):
+        for k in range(GRAPH_CALLS):
+            want = {n: v.clone() for n, v in eager(k, *case, T_gt, cov, swap=swap).items()}
+            pairs.append((graphed(k, *case, T_gt, cov, swap=swap), want))
+    equal, gap = outputs_equal(pairs)
+    reset_counts()
+    eager(0, *case, T_gt, cov, swap=False)
+    eager_launches = read_counts()
+    reset_counts()
+    graphed(0, *case, T_gt, cov, swap=False)
+    replay_launches = read_counts()
+    timed = both_ways({"eager": lambda: float(eager(0, *case, T_gt, cov, swap=False)["rr"]),
+                       "graphed": lambda: float(graphed(0, *case, T_gt, cov, swap=False)["rr"])},
+                      block=block)
+    return {"d": d, "keypoints": SCENE_KEYPOINTS, "outputs_bit_equal": equal,
+            "outputs_max_rel_err": gap, "accepted": bool(pairs[0][0]["accepted"]),
+            "captures": graphed.graphed.captures, "replays": graphed.graphed.replays,
+            "launches_eager": eager_launches, "launches_per_replay": replay_launches,
+            "pairs": timed}, (graphed, eager, case, T_gt, cov)
+
+
+def phase_nn_widths(gen):
+    """Kernel B at widths of its chunk fold (fault 5): against its plain
+    version at 5 000 x 5 000 (a 3DMatch pair's keypoints) at D = 16, 64 and
+    256 (``kernel_b_entry``: the choice's exact distance within the d² gate,
+    graph-timed ms beside its bound, the plain version and cdist + min), at
+    ragged sizes, and the chunk fold at D = 32 bit-equal to the pair fold;
+    then model_n_out 16 end to end: a graphed validation step at the train
+    phase's width and eval-3dmatch's register against their eager calls,
+    and ``cli train --model-n-out 16`` through an epoch and its validation
+    on the card."""
+    entries = []
+    for d in NN_WIDTHS:
+        q, r = unit_rows(gen, WIDTH_KEYPOINTS, d), unit_rows(gen, WIDTH_KEYPOINTS, d)
+        v = torch.rand((WIDTH_KEYPOINTS,), generator=gen, device="cuda") > 0.1
+        entries.append(kernel_b_entry(f"descriptors {WIDTH_KEYPOINTS}^2 x {d}", q, r, v,
+                                      "nn_widths"))
+    ragged = []
+    for d in NN_WIDTHS:
+        for n, m in NN_WIDTH_RAGGED:
+            q, r = unit_rows(gen, n, d), unit_rows(gen, m, d)
+            v = torch.rand((m,), generator=gen, device="cuda") > 0.1
+            ragged.append([n, m, d, nn_compare(f"ragged {n}x{m}x{d}", q, r, v,
+                                               same_index=False)["max_abs_err"]])
+    q, r = unit_rows(gen, WIDTH_KEYPOINTS, 32), unit_rows(gen, WIDTH_KEYPOINTS, 32)
+    pair_plan = nn_plan(WIDTH_KEYPOINTS, WIDTH_KEYPOINTS, 32)
+    chunk_at_32 = all(torch.equal(a, b) for a, b in zip(
+        run_plan(q, r, None, pair_plan._replace(fold="chunk")), run_plan(q, r, None, pair_plan)))
+
+    # model_n_out 16: the validation step at the train phase's width
+    cfg = bench_config().replace(batch_size=1, max_points=TRAIN_N_PAD, model_n_out=16)
+    vbatch = synthetic_batch(np.random.RandomState(1), batch_size=1, n_points=200_000,
+                             n_pad=TRAIN_N_PAD, image_hw=(cfg.image_H, cfg.image_W))
+    vmodel = train_model(cfg, "cuda")
+    veager = make_val_step(vmodel, cfg, map_impl="search")
+    vgraphed = make_graphed_val_step(vmodel, cfg, map_impl="search")
+    # a replay's metrics are the graph's outputs, which the next call overwrites
+    val_equal, _ = outputs_equal([
+        ({k: v.clone() for k, v in vgraphed(
+            vbatch, torch.Generator(device="cuda").manual_seed(i)).items()},
+         veager(vbatch, torch.Generator(device="cuda").manual_seed(i)))
+        for i in range(GRAPH_CALLS)])
+    reset_counts()
+    vgraphed(vbatch, torch.Generator(device="cuda").manual_seed(0))
+    val_launches = read_counts()
+    del vmodel, veager, vgraphed, vbatch
+    register16, _ = register_both_ways(bench_config(), gen, 16, block=3)
+    # the documented flag, through the CLI on the card
+    with tempfile.TemporaryDirectory(prefix="train16_") as out:
+        t = time.perf_counter()
+        run_cli(["train", "--dataset", "synthetic", "--batch-size", "1", "--max-epoch", "1",
+                 "--lr", "0.05", "--voxel-size", "0.05", "--max-points", "1024",
+                 "--model-n-out", "16", "--conv1-kernel-size", "3", "--synthetic-length", "4",
+                 "--synthetic-n-points", "400", "--out-dir", out], text=True)
+        train_s = time.perf_counter() - t
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            metrics = [json.loads(ln) for ln in f]
+        best = sorted(n for n in os.listdir(out) if n.startswith("best_val_checkpoint"))
+    val_metrics = {m["tag"]: m["value"] for m in metrics if m["tag"].startswith("val/")}
+    emit({"phase": "nn_widths", "widths": list(NN_WIDTHS),
+          "kernel_b": [{k: e[k] for k in ("d", "fold", "tile", "split", "max_abs_err",
+                                          "choice_gap", "index_mismatches", "ms", "plain_ms",
+                                          "library_ms", "bound_ms", "bound_by", "x_bound")}
+                       for e in entries],
+          "ragged_n_m_d_err": ragged, "chunk_fold_at_d32_equals_pair_fold": chunk_at_32,
+          "val_step_16": {"metrics_bit_equal": val_equal, "launches_per_replay": val_launches},
+          "register_16": register16,
+          "cli_train_16": {"seconds": train_s, "val_metrics": val_metrics,
+                           "best_checkpoints": best},
+          "nvidia_smi": DEVICE["nvidia_smi"]})
+    if not chunk_at_32:
+        raise AssertionError("nn_widths: the chunk fold at D = 32 differs from the pair fold")
+    if not val_equal or val_launches != GRAPH_VAL_LAUNCHES:
+        raise AssertionError(f"nn_widths: the 16-d validation step: equal {val_equal}, "
+                             f"launches {val_launches}")
+    if not register16["outputs_bit_equal"] or \
+            register16["launches_per_replay"] != register16["launches_eager"] or \
+            register16["launches_per_replay"]["flash_nn"] != 2:
+        raise AssertionError(f"nn_widths: the 16-d register: {register16}")
+    if not val_metrics or not all(np.isfinite(v) for v in val_metrics.values()) or not best:
+        raise AssertionError(f"nn_widths: cli train --model-n-out 16 validated "
+                             f"{val_metrics}, checkpoints {best}")
+    return entries
+
+
+def icp_clouds(root):
+    """Pair 0 of the KITTI scans as KITTIPairDataset hands them to ICP:
+    voxelized at 5 cm, side 0 moved by the closed-form start, both padded
+    to the next power of two."""
+    cfg = kitti_config(dataset="KITTIPairDataset", kitti_root=root, kitti_max_time_diff=3)
+    dset = KITTIPairDataset("test", cfg, random_rotation=False, random_scale=False,
+                            icp_device="cuda")
+    drive, t0, t1 = dset.files[0]
+    xyz0 = np.fromfile(dset._velodyne_fn(drive, t0), np.float32).reshape(-1, 4)[:, :3]
+    xyz1 = np.fromfile(dset._velodyne_fn(drive, t1), np.float32).reshape(-1, 4)[:, :3]
+    _, sel0 = voxelize_np(xyz0, 0.05)
+    _, sel1 = voxelize_np(xyz1, 0.05)
+    src = apply_transform_np(xyz0[sel0], closed_form_gt(dset, drive, t0, t1))
+    dst = xyz1[sel1]
+    n_pad = 1 << int(np.ceil(np.log2(max(len(src), len(dst)))))
+    rows = torch.arange(n_pad, device="cuda")
+    out = []
+    for x in (src, dst):
+        p = torch.zeros((n_pad, 3), device="cuda")
+        p[:len(x)] = torch.from_numpy(x.astype(np.float32)).cuda()
+        out.append(p)
+    return out + [rows < len(src), rows < len(dst)]
+
+
+def phase_graphs_icp(root):
+    """ICP (1.16) replayed as one CUDA graph (``icp_point_to_point``)
+    against the eager loop (``graphed=False``) on a KITTI pair at scan
+    scale: T bit-equal over GRAPH_CALLS calls, a replay's launches (B 30),
+    ms both ways in blocks (eager, graphed, graphed, eager). Returns the
+    profile runs for later."""
+    args = icp_clouds(root)
+    eye = torch.eye(4, device="cuda")
+    want = icp_point_to_point(*args, eye, 0.2, graphed=False)
+    got = [icp_point_to_point(*args, eye, 0.2) for _ in range(GRAPH_CALLS)]
+    equal = all(torch.equal(T, want) for T in got)
+    reset_counts()
+    icp_point_to_point(*args, eye, 0.2, graphed=False)
+    eager_launches = read_counts()
+    reset_counts()
+    icp_point_to_point(*args, eye, 0.2)
+    replay_launches = read_counts()
+    timed = both_ways({"eager": lambda: icp_point_to_point(*args, eye, 0.2, graphed=False),
+                       "graphed": lambda: icp_point_to_point(*args, eye, 0.2)}, block=ICP_BLOCK)
+    emit({"phase": "graphs_icp", "n_pad": int(args[0].shape[0]),
+          "points": [int(args[2].sum()), int(args[3].sum())], "iters": 30,
+          "calls_compared": GRAPH_CALLS, "T_bit_equal": equal,
+          "captures": icp_graphed.captures, "replays": icp_graphed.replays,
+          "launches_eager": eager_launches, "launches_per_replay": replay_launches,
+          "calls": timed, "order": "eager, graphed, graphed, eager", "block": ICP_BLOCK,
+          "max_memory_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+          "nvidia_smi": DEVICE["nvidia_smi"]})
+    if not equal:
+        raise AssertionError("graphs_icp: the replayed ICP differs from the eager one")
+    if replay_launches != eager_launches or replay_launches["flash_nn"] != 30:
+        raise AssertionError(f"graphs_icp: a replay launched {replay_launches}, an eager call "
+                             f"{eager_launches}")
+    return [(lambda: icp_point_to_point(*args, eye, 0.2, graphed=False),
+             timed["eager"]["median_ms"], "graphs_icp_profile_eager", "icp"),
+            (lambda: icp_point_to_point(*args, eye, 0.2),
+             timed["graphed"]["median_ms"], "graphs_icp_profile", "icp")]
+
+
+def phase_graphs_extract(gen):
+    """The bucketed extractor (1.17) replayed as three CUDA graphs a
+    fragment (quantize per raw bucket and path, pyramid and forward per
+    bucket and path, the host reads between them) against
+    ``graphed=False``, at full width (bench_config, bf16, random seeded
+    weights) on the bench pair's side 0 (200 000 points): the grid path and,
+    with the grid maps off, the exact path. Descriptors and points bit-equal
+    over GRAPH_CALLS calls, launches a fragment equal to eager and to
+    FRAGMENT_LAUNCHES, ms both ways; then every bucket's pyramid and forward
+    graph captured on both paths and the peak reserved memory. Returns the
+    profile runs for later."""
+    cfg = bench_config()
+    model = init_model(cfg, 0).cuda().eval()
+    pair = bench_pair(cfg)
+    raw, n_raw = pad_points_bucketed(pair.xyz0)
+    image = np.asarray(pair.image0, np.float32)[None]
+    paths, profiles = {}, []
+    for path, pcfg in (("grid", cfg), ("exact", cfg.replace(use_grid_maps=False))):
+        graphed = make_bucketed_extractor(model, config=pcfg)
+        eager = make_bucketed_extractor(model, config=pcfg, graphed=False)
+        want = eager(raw, n_raw, image)
+        got = [graphed(raw, n_raw, image) for _ in range(GRAPH_CALLS)]
+        equal = all(np.array_equal(g[0], want[0]) and np.array_equal(g[1], want[1])
+                    for g in got)
+        reset_counts()
+        eager(raw, n_raw, image)
+        eager_launches = read_counts()
+        reset_counts()
+        graphed(raw, n_raw, image)
+        replay_launches = read_counts()
+        timed = both_ways({"eager": lambda e=eager: e(raw, n_raw, image),
+                           "graphed": lambda g=graphed: g(raw, n_raw, image)})
+        paths[path] = {"choice": graphed.last._asdict(), "bit_equal": equal,
+                       "launches_eager": eager_launches, "launches_per_fragment": replay_launches,
+                       "fragments": timed,
+                       "captures": {k: g.captures for k, g in graphed.graphed.items()},
+                       "replays": {k: g.replays for k, g in graphed.graphed.items()}}
+        if not equal:
+            raise AssertionError(f"graphs_extract: the {path} path's replay differs from eager")
+        if replay_launches != eager_launches or replay_launches != FRAGMENT_LAUNCHES[path]:
+            raise AssertionError(f"graphs_extract: a {path} fragment launched "
+                                 f"{replay_launches}; eager {eager_launches}")
+        # every bucket's pyramid and forward graph on this path
+        st = graphed.graphed
+        extent = graphed.last.extent
+        xyz = torch.as_tensor(raw).cuda()
+        valid = torch.arange(xyz.shape[0], device="cuda") < n_raw
+        img = torch.as_tensor(image).cuda()
+        sv, _ = st["quantize"](xyz, valid, extent)
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        for bucket in DEFAULT_BUCKETS:
+            for _ in range(GRAPH_CALLS):
+                pyr, _ = st["pyramid"](sv.coords, sv.num_valid, bucket, extent)
+                st["forward"](sv.coords, sv.feats, sv.num_valid, pyr, img, bucket)
+        torch.cuda.synchronize()
+        paths[path]["graphs_after_every_bucket"] = {k: len(g.graphs) for k, g in st.items()}
+        paths[path]["reserved_gib_before_after_every_bucket"] = [
+            reserved / 2 ** 30, torch.cuda.memory_reserved() / 2 ** 30]
+        profiles += [(lambda e=eager: e(raw, n_raw, image), timed["eager"]["median_ms"],
+                      f"graphs_extract_profile_eager_{path}", "fragment"),
+                     (lambda g=graphed: g(raw, n_raw, image), timed["graphed"]["median_ms"],
+                      f"graphs_extract_profile_{path}", "fragment")]
+    emit({"phase": "graphs_extract", "raw_points": int(n_raw), "raw_bucket": len(raw),
+          "paths": paths, "calls_compared": GRAPH_CALLS, "buckets": list(DEFAULT_BUCKETS),
+          "max_memory_reserved_gib_after_every_bucket":
+              torch.cuda.max_memory_reserved() / 2 ** 30,
+          "memory_reserved_gib_after_every_bucket": torch.cuda.memory_reserved() / 2 ** 30,
+          "order": "eager, graphed, graphed, eager", "block": GRAPH_BLOCK,
+          "nvidia_smi": DEVICE["nvidia_smi"]})
+    return profiles
+
+
+def icp_cache(dset):
+    """{pair: the refined ground truth's .npy} of a KITTI dataset."""
+    return {f: np.load(os.path.join(dset.icp_path, "%d_%d_%d.npy" % f)) for f in dset.files}
+
+
+def phase_graphs_kitti(root):
+    """eval-kitti's pair (1.18), both forwards and the registration as one
+    CUDA graph (``make_eval_pair``), against ``graphed=False`` at kitti_config
+    width (random seeded weights, the occupancy conv1 of the CLI's
+    inference model) on the KITTI scans, the draws of pair i from the
+    generator seeded with i: every output (pose, RTE/RRE, inlier counts)
+    bit-equal over each pair and GRAPH_CALLS calls of pair 0, a replay's
+    launches KITTI_PAIR_LAUNCHES, ms both ways. ICP inside the loader, in
+    both forms, with each form's own ICP cache: the test split's producer
+    thread, while this thread replays and captures the pair's graph, and a
+    loader worker process (``workers=1``, a CUDA context of its own); each
+    refined ground truth bit-equal to eager ICP's. Returns the profile runs
+    for later."""
+    from imfnet_tpu_torch.data import datasets
+
+    base = dict(dataset="KITTIPairDataset", kitti_root=root, kitti_max_time_diff=3)
+    eager_cfg = kitti_config(icp_cache_path=os.path.join(root, "icp_eager"), **base)
+    real_icp = datasets.icp_point_to_point
+    datasets.icp_point_to_point = lambda *a, **kw: real_icp(*a, graphed=False, **kw)
+    try:
+        edset = KITTIPairDataset("test", eager_cfg, random_rotation=False, random_scale=False,
+                                 icp_device="cuda")
+        for i in range(len(edset)):
+            edset[i]
+    finally:
+        datasets.icp_point_to_point = real_icp
+    want_gt = icp_cache(edset)
+
+    cfg = kitti_config(icp_cache_path=os.path.join(root, "icp_thread"), **base)
+    torch.manual_seed(0)
+    model = build_model_from_config(cfg, eval_fast=True).cuda().eval()
+    graphed, eager = make_eval_pair(model, cfg), make_eval_pair(model, cfg, graphed=False)
+    loader = make_data_loader(cfg, "test", 1, shuffle=False, device="cuda")
+    pairs, batches = [], []
+    t = time.perf_counter()
+    for i, batch in loader.numbered():       # ICP in the producer thread meanwhile
+        batch = batch_to_device(batch, torch.device("cuda"))
+        got = graphed(i, batch)
+        got = {k: v.clone() for k, v in got.items()}
+        pairs.append((got, eager(i, batch)))
+        batches.append((i, batch))
+    thread_s = time.perf_counter() - t
+    thread_gt = icp_cache(KITTIPairDataset("test", cfg, random_rotation=False,
+                                           random_scale=False, icp_device="cuda"))
+    wcfg = kitti_config(icp_cache_path=os.path.join(root, "icp_worker"), **base)
+    wloader = make_data_loader(wcfg, "test", 1, shuffle=False, device="cuda", workers=1)
+    t = time.perf_counter()
+    n_worker = sum(1 for _ in wloader)
+    worker_s = time.perf_counter() - t
+    wloader.close()
+    worker_gt = icp_cache(KITTIPairDataset("test", wcfg, random_rotation=False,
+                                           random_scale=False, icp_device="cuda"))
+    i0, b0 = batches[0]
+    for _ in range(GRAPH_CALLS):
+        pairs.append(({k: v.clone() for k, v in graphed(i0, b0).items()}, eager(i0, b0)))
+    equal, gap = outputs_equal(pairs)
+    reset_counts()
+    eager(i0, b0)
+    eager_launches = read_counts()
+    reset_counts()
+    graphed(i0, b0)
+    replay_launches = read_counts()
+    timed = both_ways({"eager": lambda: float(eager(i0, b0)["rte_raw"]),
+                       "graphed": lambda: float(graphed(i0, b0)["rte_raw"])}, block=PAIR_BLOCK)
+    gt_equal = {"thread": all(np.array_equal(thread_gt[f], want_gt[f]) for f in want_gt),
+                "worker": all(np.array_equal(worker_gt[f], want_gt[f]) for f in want_gt)}
+    rte_rre = [[float(g["rte_raw"]), float(g["rre_raw"])] for g, _ in pairs[:len(batches)]]
+    emit({"phase": "graphs_kitti", "pairs": len(batches), "worker_pairs": n_worker,
+          "outputs_bit_equal": equal, "outputs_max_rel_err": gap, "rte_rre_raw": rte_rre,
+          "icp_ground_truth_bit_equal_to_eager": gt_equal,
+          "loader_seconds": {"thread_with_pair_graphs": thread_s, "worker": worker_s},
+          "captures": graphed.graphed.captures, "replays": graphed.graphed.replays,
+          "launches_eager": eager_launches, "launches_per_replay": replay_launches,
+          "pairs_timed": timed, "order": "eager, graphed, graphed, eager", "block": PAIR_BLOCK,
+          "max_memory_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+          "nvidia_smi": DEVICE["nvidia_smi"]})
+    if not equal:
+        raise AssertionError(f"graphs_kitti: a replayed pair differs from eager ({gap})")
+    if replay_launches != eager_launches or replay_launches != KITTI_PAIR_LAUNCHES:
+        raise AssertionError(f"graphs_kitti: a replay launched {replay_launches}; eager "
+                             f"{eager_launches}, want {KITTI_PAIR_LAUNCHES}")
+    if not all(gt_equal.values()) or n_worker != len(batches) or not batches:
+        raise AssertionError(f"graphs_kitti: ICP in the loader: {gt_equal}, pairs "
+                             f"{len(batches)} (thread) and {n_worker} (worker)")
+    return [(lambda: eager(i0, b0), timed["eager"]["median_ms"],
+             "graphs_kitti_profile_eager", "pair"),
+            (lambda: graphed(i0, b0), timed["graphed"]["median_ms"],
+             "graphs_kitti_profile", "pair")]
+
+
+def phase_graphs_3dmatch(gen):
+    """eval-3dmatch's register (1.19), one CUDA graph per (keypoint pad,
+    width, swap) with RANSAC's uniforms drawn outside from the pair's
+    generator, against the eager call, at bench_config (50 000 hypotheses)
+    on 5 000 keypoints a side with 32-d descriptors: every output bit-equal
+    over GRAPH_CALLS pairs of each swap, a replay's launches (B 2), ms both
+    ways. Returns the profile runs for later."""
+    entry, (graphed, eager, case, T_gt, cov) = register_both_ways(bench_config(), gen, 32)
+    emit({"phase": "graphs_3dmatch", **entry, "order": "eager, graphed, graphed, eager",
+          "block": GRAPH_BLOCK, "nvidia_smi": DEVICE["nvidia_smi"]})
+    if not entry["outputs_bit_equal"]:
+        raise AssertionError("graphs_3dmatch: a replayed register differs from eager")
+    if entry["launches_per_replay"] != entry["launches_eager"] or \
+            entry["launches_per_replay"]["flash_nn"] != 2:
+        raise AssertionError(f"graphs_3dmatch: launches {entry}")
+    return [(lambda: eager(0, *case, T_gt, cov, swap=False), entry["pairs"]["eager"]["median_ms"],
+             "graphs_3dmatch_profile_eager", "pair"),
+            (lambda: graphed(0, *case, T_gt, cov, swap=False),
+             entry["pairs"]["graphed"]["median_ms"], "graphs_3dmatch_profile", "pair")]
+
+
+def phase_eval_graphs(gen):
+    """The five phases of kernel B's widths and the evaluation side's graphs;
+    returns kernel B's width entries and the profile runs, which come after
+    every timed phase."""
+    widths = phase_nn_widths(gen)
+    profiles = []
+    saved = dict(KITTIPairDataset.DATA_FILES)
+    with tempfile.TemporaryDirectory(prefix="kitti_graphs_") as root:
+        write_kitti_scans(root)
+        KITTIPairDataset.DATA_FILES["test"] = os.path.join(root, "test_list.txt")
+        try:
+            # eval-kitti first: its loader's producer thread warms up and
+            # captures ICP's graph beside this thread's pair graphs
+            profiles += phase_graphs_kitti(root)
+            profiles += phase_graphs_icp(root)
+        finally:
+            KITTIPairDataset.DATA_FILES.clear()
+            KITTIPairDataset.DATA_FILES.update(saved)
+    # the profiles' runs read tensors on the card, not the scans
+    profiles += phase_graphs_extract(gen)
+    profiles += phase_graphs_3dmatch(gen)
+    return widths, profiles
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -3784,6 +4255,9 @@ def main():
     phase_train_reference()
     train_launches, seconds_per_step, state, step, step_gen = phase_train(cfg, batch)
     gstep, gstate, ggen, gstep_ms = phase_graphs(cfg, batch)
+    # kernel B at every width, the evaluation side's graphs: timed before
+    # the profiler, profiled after the others
+    width_entries, eval_profiles = phase_eval_graphs(gen)
     # data parallelism, one rank: before the profiler, which slows this
     # process's later launches; the two ranks run last (phase_ranks)
     dp_ctx = phase_dp_one_rank(cfg, batch)
@@ -3797,6 +4271,9 @@ def main():
                   "train_profile", "step", 3)
     profile_units(lambda: gstep(gstate, batch, ggen), gstep_ms, "train_profile_graphed",
                   "step", 3)
+    for run, wall_ms, name, unit in eval_profiles:
+        profile_units(run, wall_ms, name, unit, 1)
+    del eval_profiles
     del reg, reg_grid, reg_eager, reg_grid_eager, gstep, gstate
     a, b = kernels[0], kernels[1]
     by_variant = lambda counts: {v: counts[f"sparse_conv_gather_gemm.{v}"]  # noqa: E731
@@ -3828,6 +4305,9 @@ def main():
               "train_plain_ms": train_kernels["word_match"]["plain_ms"],
               "train_bound_ms": train_kernels["word_match"]["bound_ms"]})
     b["search_library_ms"] = train_kernels["search"]["library_ms"]
+    b["other_widths"] = [{k: e[k] for k in ("n", "m", "d", "fold", "max_abs_err", "ms",
+                                            "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                         for e in width_entries]
     del state, step, batch
 
     # ---- the trainer around the step ---------------------------------

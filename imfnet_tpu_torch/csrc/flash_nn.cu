@@ -69,6 +69,20 @@
 //  - the columns, then the cluster's parts, merge by (d, index) as above.
 // The distance rounds differently from the (d, index) fold (three roundings
 // against one), so near-tie choices are held to their exact distances.
+//
+// Every other width (a model_n_out other than 32: 16, 64, 256, ...) takes the
+// chunk fold (flash_nnk_kernel, D a runtime value): the TPU kernel pads D to
+// a multiple of 8 (pallas_nn.py:71), and so does this one's pre-pass
+// (nn_transpose_any_kernel), whose zero columns leave every |r|^2 - 2 q.r
+// unchanged. The contraction runs over the padded width DP in chunks of KC =
+// 8 rows: a ring stage holds one chunk of the query tile and of the
+// reference tile (and, with a tile's last chunk, the references' norms), so
+// shared memory is the same at every D, where the pair fold keeps the whole
+// (D + 1) x BQ query tile. Each thread's TQ x TR dots stay in registers
+// across a tile's chunks, summed over c = 0 .. DP-1 in order by fmaf as in
+// the pair fold (at D = 32 the two are bit-equal), then fold into (d, index)
+// and merge across threads and the cluster exactly as the pair fold does.
+// Queries are re-read from L2 for every reference tile: right before fast.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -87,6 +101,8 @@ constexpr int MAX_SPLIT = 8; // portable thread-block cluster size
 constexpr int PRE_NT = 128;  // threads of a pre-pass block (divides PAD)
 constexpr int K_UNROLL = 8;  // k steps unrolled together (even: the operand
                              // registers alternate)
+constexpr int KC = 8;        // the chunk fold's rows of the contraction a stage
+                             // holds; D is padded to a multiple of it
 
 // Pre-pass: thread j transposes row j of q (j < n_pad) or of r into the
 // k-major scratch and writes its squared norm into row D.
@@ -114,6 +130,33 @@ nn_transpose_kernel(const float* __restrict__ q, const float* __restrict__ r,
     s = ok ? s : INFINITY;
   }
   dst[(size_t)D * pad + j] = s;
+}
+
+// The same for any width: d components, zero-padded to dp rows, and the
+// squared norm (summed over the d components in order) in row dp.
+__global__ void __launch_bounds__(PRE_NT)
+nn_transpose_any_kernel(const float* __restrict__ q, const float* __restrict__ r,
+                        const uint8_t* __restrict__ valid, int n, int m, int d, int dp,
+                        int n_pad, int m_pad, float* __restrict__ qt,
+                        float* __restrict__ rt) {
+  int j = blockIdx.x * PRE_NT + threadIdx.x;
+  const bool is_ref = j >= n_pad;
+  if (is_ref) j -= n_pad;
+  const float* src = is_ref ? r : q;
+  float* dst = is_ref ? rt : qt;
+  const int rows = is_ref ? m : n;
+  const int pad = is_ref ? m_pad : n_pad;
+  float s = 0.f;
+  for (int c = 0; c < dp; ++c) {
+    const float v = j < rows && c < d ? __ldg(src + (size_t)j * d + c) : 0.f;
+    dst[(size_t)c * pad + j] = v;
+    s = fmaf(v, v, s);
+  }
+  if (is_ref) {
+    const bool ok = j < m && (valid == nullptr || valid[j] != 0);
+    s = ok ? s : INFINITY;
+  }
+  dst[(size_t)dp * pad + j] = s;
 }
 
 __device__ __forceinline__ void ld4(float* dst, const float* src) {
@@ -486,10 +529,177 @@ flash_nn3_kernel(const float* __restrict__ qt, const float* __restrict__ rt,
   cluster.sync();
 }
 
-template <typename Kernel>
-cudaError_t launch_cluster(Kernel kernel, size_t smem, int bq, int threads, const float* qt,
-                           const float* rt, int n, int m, int n_pad, int m_pad, int split,
-                           int* out_i, float* out_d, cudaStream_t stream) {
+// The chunk fold at any padded width dp: a block is GY x GX threads with a
+// TQ x TR micro-tile each, as in NnTile; a ring stage holds KC rows of the
+// query tile, KC rows of a reference tile and that tile's norms.
+template <int TQ, int TR, int GY, int GX>
+struct NnkTile {
+  static_assert(TQ % 4 == 0 && TR % 4 == 0 && GY % 4 == 0 && GX % 8 == 0 && GX <= 16,
+                "16-byte operand loads; a warp is 4 x 8 threads");
+  static constexpr int NT = GY * GX;
+  static constexpr int BQ = GY * TQ;
+  static constexpr int BR = GX * TR;
+  static_assert(PAD % BQ == 0 && PAD % BR == 0, "tiles must not pass the scratch's padding");
+  static constexpr int STAGE = KC * BQ + (KC + 1) * BR;
+  // the ring; the per-thread bests of each query row, up to 16 (d, index)
+  // pairs, reuse it after the last step
+  static constexpr int RING = STAGES * STAGE > 32 * BQ ? STAGES * STAGE : 32 * BQ;
+  // keep in step with nn_smem_bytes(..., fold="chunk") in match/nn_kernel.py
+  static constexpr size_t smem_bytes() { return (RING + 2 * BQ) * sizeof(float); }
+};
+
+template <int TQ, int TR, int GY, int GX>
+__global__ void __launch_bounds__(GY * GX)
+flash_nnk_kernel(const float* __restrict__ qt, const float* __restrict__ rt,
+                 int n, int m, int n_pad, int m_pad, int dp, int split,
+                 int* __restrict__ out_i, float* __restrict__ out_d) {
+  using T = NnkTile<TQ, TR, GY, GX>;
+  constexpr int NT = T::NT, BQ = T::BQ, BR = T::BR, STAGE = T::STAGE;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                // [STAGES][KC x BQ | KC x BR | BR]
+  float* part_d = ring + T::RING;    // [BQ] this block's bests
+  int* part_i = reinterpret_cast<int*>(part_d + BQ);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int ty = (warp / (GX / 8)) * 4 + lane / 8;
+  const int tx = (warp % (GX / 8)) * 8 + lane % 8;
+  const int q0 = blockIdx.x * BQ;
+  const int part = blockIdx.y;
+  const int tiles = (m + BR - 1) / BR;
+  const int t_begin = (int)((long long)part * tiles / split);
+  const int count = (int)((long long)(part + 1) * tiles / split) - t_begin;
+  const int chunks = dp / KC;
+  const int steps = count * chunks;  // step s: chunk s % chunks of tile s / chunks
+
+  auto load_step = [&](int s) {
+    float* st = ring + (s % STAGES) * STAGE;
+    const int c = s % chunks;
+    const size_t r0 = (size_t)(t_begin + s / chunks) * BR;
+    load_tile<KC, BQ, NT>(st, qt + (size_t)c * KC * n_pad + q0, n_pad, tid);
+    load_tile<KC, BR, NT>(st + KC * BQ, rt + (size_t)c * KC * m_pad + r0, m_pad, tid);
+    if (c == chunks - 1)
+      load_tile<1, BR, NT>(st + KC * (BQ + BR), rt + (size_t)dp * m_pad + r0, m_pad, tid);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load_step(s);
+    cp_async_commit();
+  }
+
+  float best[TQ];
+  int best_i[TQ];
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    best[i] = INFINITY;
+    best_i[i] = 0;
+  }
+  float acc[TQ][TR];
+
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<STAGES - 2>();  // step s has landed (this thread's part)
+    __syncthreads();              // ... everyone's; and step s-1 is done with
+    if (s + STAGES - 1 < steps) load_step(s + STAGES - 1);
+    cp_async_commit();
+
+    const int c = s % chunks;
+    const float* qs = ring + (s % STAGES) * STAGE;
+    const float* rs = qs + KC * BQ;
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < TQ; ++i)
+#pragma unroll
+        for (int j = 0; j < TR; ++j) acc[i][j] = 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      float qv[TQ], rv[TR];
+#pragma unroll
+      for (int h = 0; h < TQ / 4; ++h) ld4(qv + 4 * h, qs + k * BQ + (h * GY + ty) * 4);
+#pragma unroll
+      for (int h = 0; h < TR / 4; ++h) ld4(rv + 4 * h, rs + k * BR + (h * GX + tx) * 4);
+#pragma unroll
+      for (int i = 0; i < TQ; ++i)
+#pragma unroll
+        for (int j = 0; j < TR; ++j) acc[i][j] = fmaf(qv[i], rv[j], acc[i][j]);
+    }
+    if (c == chunks - 1) {  // the tile's dots are whole: fold them
+      float rq[TR];
+#pragma unroll
+      for (int h = 0; h < TR / 4; ++h) ld4(rq + 4 * h, rs + KC * BR + (h * GX + tx) * 4);
+      const int j0 = (t_begin + s / chunks) * BR + tx * 4;
+#pragma unroll
+      for (int i = 0; i < TQ; ++i)
+#pragma unroll
+        for (int j = 0; j < TR; ++j) {  // increasing reference index
+          const float d = fmaf(-2.f, acc[i][j], rq[j]);
+          if (d < best[i]) {
+            best[i] = d;
+            best_i[i] = j0 + (j / 4) * (GX * 4) + j % 4;
+          }
+        }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free
+
+  const float* qnorm = qt + (size_t)dp * n_pad + q0;
+  float* red_d = ring;                                  // [BQ][GX]
+  int* red_i = reinterpret_cast<int*>(ring + GX * BQ);  // [BQ][GX]
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    const int row = ((i / 4) * GY + ty) * 4 + i % 4;
+    red_d[row * GX + tx] = best[i];
+    red_i[row * GX + tx] = best_i[i];
+  }
+  __syncthreads();
+  for (int row = tid; row < BQ; row += NT) {
+    float bd = red_d[row * GX];
+    int bi = red_i[row * GX];
+    for (int x = 1; x < GX; ++x) {
+      const float d = red_d[row * GX + x];
+      const int i = red_i[row * GX + x];
+      if (nearer(d, i, bd, bi)) {
+        bd = d;
+        bi = i;
+      }
+    }
+    part_d[row] = bd;
+    part_i[row] = bi;
+  }
+
+  if (split == 1) {
+    for (int row = tid; row < BQ; row += NT)
+      if (q0 + row < n) {
+        out_i[q0 + row] = part_i[row];
+        out_d[q0 + row] = fmaxf(part_d[row] + qnorm[row], 0.f);
+      }
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  for (int row = part + tid * split; row < BQ; row += NT * split) {
+    float bd = INFINITY;
+    int bi = 0;
+    for (int p = 0; p < split; ++p) {
+      const float d = cluster.map_shared_rank(part_d, p)[row];
+      const int i = cluster.map_shared_rank(part_i, p)[row];
+      if (nearer(d, i, bd, bi)) {
+        bd = d;
+        bi = i;
+      }
+    }
+    if (q0 + row < n) {
+      out_i[q0 + row] = bi;
+      out_d[q0 + row] = fmaxf(bd + qnorm[row], 0.f);
+    }
+  }
+  cluster.sync();
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, size_t smem, int bq, int threads, int n, int split,
+                           cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((n + bq - 1) / bq, split);
   cfg.blockDim = dim3(threads);
@@ -502,7 +712,7 @@ cudaError_t launch_cluster(Kernel kernel, size_t smem, int bq, int threads, cons
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, qt, rt, n, m, n_pad, m_pad, split, out_i, out_d);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 template <int TQ, int TR, int GY, int GX>
@@ -517,8 +727,8 @@ cudaError_t launch_nn3(const float* qt, const float* rt, int n, int m, int n_pad
     if (e != cudaSuccess) return e;
     smem_allowed = true;
   }
-  return launch_cluster(kernel, T::smem_bytes(), T::BQ, T::NT, qt, rt, n, m, n_pad, m_pad,
-                        split, out_i, out_d, stream);
+  return launch_cluster(kernel, T::smem_bytes(), T::BQ, T::NT, n, split, stream, qt, rt, n, m,
+                        n_pad, m_pad, split, out_i, out_d);
 }
 
 template <int D, int TQ, int TR, int GY, int GX>
@@ -534,8 +744,47 @@ cudaError_t launch_nn(const float* qt, const float* rt, int n, int m, int n_pad,
     if (e != cudaSuccess) return e;
     smem_allowed = true;
   }
-  return launch_cluster(kernel, T::smem_bytes(), T::BQ, T::NT, qt, rt, n, m, n_pad, m_pad,
-                        split, out_i, out_d, stream);
+  return launch_cluster(kernel, T::smem_bytes(), T::BQ, T::NT, n, split, stream, qt, rt, n, m,
+                        n_pad, m_pad, split, out_i, out_d);
+}
+
+template <int TQ, int TR, int GY, int GX>
+cudaError_t launch_nnk(const float* qt, const float* rt, int n, int m, int n_pad, int m_pad,
+                       int dp, int split, int* out_i, float* out_d, cudaStream_t stream) {
+  using T = NnkTile<TQ, TR, GY, GX>;
+  auto kernel = flash_nnk_kernel<TQ, TR, GY, GX>;
+  static bool smem_allowed = false;  // per instance
+  if (!smem_allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::smem_bytes());
+    if (e != cudaSuccess) return e;
+    smem_allowed = true;
+  }
+  return launch_cluster(kernel, T::smem_bytes(), T::BQ, T::NT, n, split, stream, qt, rt, n, m,
+                        n_pad, m_pad, dp, split, out_i, out_d);
+}
+
+// the chunk fold (fold 2) at any width d >= 1, padded to dp, a multiple of KC
+cudaError_t launch_any(int d, int bq, int br, int threads, const float* q, const float* r,
+                       const uint8_t* valid, float* scratch, int n, int m, int split,
+                       int* out_i, float* out_d, cudaStream_t stream) {
+  const int dp = (d + KC - 1) / KC * KC;
+  const int n_pad = (n + PAD - 1) / PAD * PAD, m_pad = (m + PAD - 1) / PAD * PAD;
+  float* qt = scratch;
+  float* rt = scratch + (size_t)(dp + 1) * n_pad;
+  nn_transpose_any_kernel<<<(n_pad + m_pad) / PRE_NT, PRE_NT, 0, stream>>>(
+      q, r, valid, n, m, d, dp, n_pad, m_pad, qt, rt);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+#define NNK_INSTANCE(TQ, TR, GY, GX)                                                  \
+  if (bq == GY * TQ && br == GX * TR && threads == GY * GX)                           \
+    return launch_nnk<TQ, TR, GY, GX>(qt, rt, n, m, n_pad, m_pad, dp, split, out_i, out_d, \
+                                      stream);
+  // keep in step with NN_CHUNK_TILES in match/nn_kernel.py
+  NNK_INSTANCE(8, 8, 8, 16)   // 64 x 128, 128 threads: the plan's
+  NNK_INSTANCE(8, 8, 16, 16)  // 128 x 128, 256 threads
+#undef NNK_INSTANCE
+  return cudaErrorInvalidValue;
 }
 
 template <int D>
@@ -581,11 +830,12 @@ cudaError_t launch_d(int bq, int br, int threads, int fold, const float* q, cons
 }  // namespace
 
 // q f32 [n, d], r f32 [m, d], valid uint8 [m] or null (all valid), all
-// contiguous; out_i int32 [n], out_d f32 [n], n > 0. d must be 3 or 32:
-// d = 32 takes fold 0, the (d, index) fold of flash_nn_kernel, d = 3 fold 1,
-// the min fold of flash_nn3_kernel.
-// scratch: (d + 1) * (n padded to 128 + m padded to 128) floats, 16-byte
-// aligned. bq x br is the block's tile of queries x references and threads
+// contiguous; out_i int32 [n], out_d f32 [n], n > 0, d >= 1. Fold 0, the
+// (d, index) fold of flash_nn_kernel, serves d = 32; fold 1, the min fold of
+// flash_nn3_kernel, d = 3; fold 2, the chunk fold of flash_nnk_kernel, any d.
+// scratch: (w + 1) * (n padded to 128 + m padded to 128) floats, 16-byte
+// aligned, where w is d (folds 0 and 1) or d padded to a multiple of 8
+// (fold 2). bq x br is the block's tile of queries x references and threads
 // its size (one of the instances of launch_d), split the blocks of a cluster
 // that share a query tile's references (1..8). Launches the pre-pass and the main kernel on `stream` and returns a
 // CUDA error code (cudaErrorInvalidValue for a combination with no kernel).
@@ -593,7 +843,7 @@ extern "C" int flash_nn(const void* q, const void* r, const void* valid,
                         void* scratch, void* out_i, void* out_d, int n, int m,
                         int d, int bq, int br, int threads, int split, int fold,
                         void* stream) {
-  if (n <= 0 || m < 0 || split < 1 || split > MAX_SPLIT ||
+  if (n <= 0 || m < 0 || d < 1 || split < 1 || split > MAX_SPLIT ||
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -604,7 +854,9 @@ extern "C" int flash_nn(const void* q, const void* r, const void* valid,
   int* oi = static_cast<int*>(out_i);
   float* od = static_cast<float*>(out_d);
   cudaError_t e;
-  if (d == 32) {
+  if (fold == 2) {
+    e = launch_any(d, bq, br, threads, qf, rf, vf, sf, n, m, split, oi, od, s);
+  } else if (d == 32) {
     e = launch_d<32>(bq, br, threads, fold, qf, rf, vf, sf, n, m, split, oi, od, s);
   } else if (d == 3) {
     e = launch_d<3>(bq, br, threads, fold, qf, rf, vf, sf, n, m, split, oi, od, s);

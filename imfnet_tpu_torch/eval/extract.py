@@ -12,6 +12,16 @@ picks the path:
   ``sparse.coords.quantize`` and the search pyramid, no voxel dropped.
 Both then run the model (kernel A). The extractors run on the device of the
 model's parameters.
+
+As the JAX package jits them (``imfnet_tpu/eval/extract.py:144,196,204,224``),
+the card replays CUDA graphs (``utils.graphs.jit``; ``graphed=False`` runs
+eagerly, as the CPU always does): ``make_extractor`` one graph per path
+(quantize, pyramid and forward), ``make_bucketed_extractor`` one quantize
+graph per (raw bucket, path), then, after the host read of the voxel count,
+one pyramid graph per (bucket, path) and, after the host read of
+``coarse_levels_fit``, one forward graph per (bucket, path). Kernel C's
+first capture at a size needs an eager call at that size before it: a
+signature's first call, which ``jit`` runs eagerly, is that call.
 """
 from __future__ import annotations
 
@@ -26,6 +36,7 @@ from imfnet_tpu_torch.sparse.coords import SparseVoxels, quantize
 from imfnet_tpu_torch.sparse.grid import GridSpec, quantize_grid
 from imfnet_tpu_torch.sparse.kernel_map import coarse_levels_fit
 from imfnet_tpu_torch.train.step import make_pyramid_fn
+from imfnet_tpu_torch.utils.graphs import jit
 
 
 def pad_points(xyz: np.ndarray, n_raw_pad: int) -> Tuple[np.ndarray, int]:
@@ -129,29 +140,42 @@ def _raw_on(device, xyz_raw, n_raw):
     return xyz, torch.arange(xyz.shape[0], device=device) < int(n_raw)
 
 
+def _image_on(device, image) -> torch.Tensor:
+    return torch.as_tensor(image, dtype=torch.float32).to(device)
+
+
 def make_extractor(model: torch.nn.Module, *, config: Config, n_pad: int,
-                   voxel_size: Optional[float] = None):
+                   voxel_size: Optional[float] = None, graphed: bool = True):
     """Returns extract(xyz_raw[nraw,3], n_raw, image[1,H,W,3]) →
     (xyz_down[n_pad,3], feats[n_pad,C], num_valid), tensors on the model's
     device: one fixed voxel pad, the grid path at the smallest fitting
     extent bucket, else the exact path. ``extract.fits`` is the last call's
     ``coarse_levels_fit`` (a 0-d bool tensor): False where a coarse level
-    filled its capacity and the descriptors come from a truncated pyramid."""
+    filled its capacity and the descriptors come from a truncated pyramid.
+    On the card (``graphed``) each path is one CUDA graph, whose outputs
+    come back cloned; ``extract.graphed`` is its ``Graphed``, else None."""
     vox = voxel_size if voxel_size is not None else config.voxel_size
     dev = _model_device(model)
 
     @torch.no_grad()
-    def extract(xyz_raw, n_raw, image):
-        extent = pick_extent(xyz_raw, n_raw, vox, config)
-        xyz, valid = _raw_on(dev, xyz_raw, n_raw)
+    def body(xyz, valid, image, extent):
         sv, xyz_down = _quantize_fn(extent, vox, n_pad)(xyz, valid)
         pyr = _pyramid_fn(config, n_pad, extent)(sv.coords, sv.num_valid)
         model.eval()
-        feats = model(sv, pyr, torch.as_tensor(image, dtype=torch.float32).to(dev))
-        extract.fits = coarse_levels_fit(pyr)
-        return xyz_down, feats, sv.num_valid
+        feats = model(sv, pyr, image)
+        return xyz_down, feats, sv.num_valid, coarse_levels_fit(pyr)
+
+    run = jit(body, clone=True) if graphed and dev.type == "cuda" else None
+
+    def extract(xyz_raw, n_raw, image):
+        extent = pick_extent(xyz_raw, n_raw, vox, config)
+        xyz, valid = _raw_on(dev, xyz_raw, n_raw)
+        xyz_down, feats, num_valid, extract.fits = (run or body)(
+            xyz, valid, _image_on(dev, image), extent)
+        return xyz_down, feats, num_valid
 
     extract.fits = None
+    extract.graphed = run
     return extract
 
 
@@ -166,7 +190,8 @@ class ExtractChoice(NamedTuple):
 
 def make_bucketed_extractor(model: torch.nn.Module, *, config: Config,
                             buckets=DEFAULT_BUCKETS,
-                            voxel_size: Optional[float] = None):
+                            voxel_size: Optional[float] = None,
+                            graphed: bool = True):
     """Shape-bucketed extraction: quantize once at the largest bucket, read
     the voxel count back, then build the pyramid at the smallest bucket
     that holds it. Scan-ordered quantize output keeps valid rows in front,
@@ -179,25 +204,44 @@ def make_bucketed_extractor(model: torch.nn.Module, *, config: Config,
 
     Returns extract(xyz_raw, n_raw, image) → (xyz_down[n,3], feats[n,C])
     numpy arrays cut to the voxel count n; ``extract.last`` is the
-    ``ExtractChoice`` of the last call."""
+    ``ExtractChoice`` of the last call. On the card (``graphed``) the three
+    stages replay CUDA graphs (the module's docstring);
+    ``extract.graphed`` is {"quantize", "pyramid", "forward": Graphed},
+    else None."""
     vox = voxel_size if voxel_size is not None else config.voxel_size
     n_max = buckets[-1]
     dev = _model_device(model)
 
+    def quantize_max(xyz, valid, extent):
+        return _quantize_fn(extent, vox, n_max)(xyz, valid)
+
     @torch.no_grad()
+    def pyramid(coords, num_valid, bucket, extent):
+        pyr = _pyramid_fn(config, bucket, extent)(coords[:bucket],
+                                                  num_valid.clamp_max(bucket))
+        return pyr, coarse_levels_fit(pyr)
+
+    @torch.no_grad()
+    def forward(coords, feats, num_valid, pyr, image, bucket):
+        model.eval()
+        sv = SparseVoxels(coords[:bucket], feats[:bucket], num_valid.clamp_max(bucket))
+        return model(sv, pyr, image)
+
+    stages = {"quantize": quantize_max, "pyramid": pyramid, "forward": forward}
+    if graphed and dev.type == "cuda":
+        stages = {k: jit(fn) for k, fn in stages.items()}
+
     def extract(xyz_raw, n_raw, image):
         extent = pick_extent(xyz_raw, n_raw, vox, config)
         xyz, valid = _raw_on(dev, xyz_raw, n_raw)
-        sv, xyz_down = _quantize_fn(extent, vox, n_max)(xyz, valid)
+        sv, xyz_down = stages["quantize"](xyz, valid, extent)
         n = int(sv.num_valid)
         start = next((i for i, b in enumerate(buckets) if b >= n), len(buckets) - 1)
         tried = []
         for bucket in buckets[start:]:
             tried.append(bucket)
-            coords = sv.coords[:bucket]
-            n_b = sv.num_valid.clamp_max(bucket)
-            pyr = _pyramid_fn(config, bucket, extent)(coords, n_b)
-            if bool(coarse_levels_fit(pyr)):
+            pyr, fits = stages["pyramid"](sv.coords, sv.num_valid, bucket, extent)
+            if bool(fits):
                 break
             logging.warning("fragment's coarse pyramid levels overflow bucket %d "
                             "capacities — escalating", bucket)
@@ -206,11 +250,11 @@ def make_bucketed_extractor(model: torch.nn.Module, *, config: Config,
                 f"make_bucketed_extractor: the coarse pyramid levels of a fragment "
                 f"of {n} voxels overflow even the largest bucket {n_max}; add a "
                 f"larger bucket or raise level_capacity_divisors")
-        model.eval()
-        feats = model(SparseVoxels(coords, sv.feats[:bucket], n_b), pyr,
-                      torch.as_tensor(image, dtype=torch.float32).to(dev))
+        feats = stages["forward"](sv.coords, sv.feats, sv.num_valid, pyr,
+                                  _image_on(dev, image), bucket)
         extract.last = ExtractChoice(extent, n, bucket, tuple(tried))
         return xyz_down[:n].cpu().numpy(), feats[:n].float().cpu().numpy()
 
     extract.last = None
+    extract.graphed = stages if graphed and dev.type == "cuda" else None
     return extract

@@ -13,6 +13,13 @@ package numbers the pairs it loaded (the two differ after a rejected pair).
 With ``num_devices`` > 1 the pairs are split over the ranks of ``mesh``
 (pair ``i`` loaded and registered on rank ``i mod D``) and gathered, so the
 summary equals the one-device run's.
+
+As the JAX package jits a pair's forward and registration together
+(``eval_pair``, ``imfnet_tpu/eval/kitti.py:45``), one pair on one card is one
+CUDA graph per batch signature (``make_eval_pair``), its draws made outside
+from the pair's generator in the eager order, so each pair's result is
+bit-equal to the eager one. A caller's ``register``, the CPU and a mesh run
+eagerly.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from imfnet_tpu_torch.config import Config
 from imfnet_tpu_torch.eval.registration import make_pair_registration
 from imfnet_tpu_torch.train.step import forward_pair
 from imfnet_tpu_torch.train.trainer import batch_to_device
+from imfnet_tpu_torch.utils.graphs import jit
 from imfnet_tpu_torch.utils.timer import AverageMeter, Timer
 
 
@@ -40,23 +48,11 @@ def registration_errors(T_gt, transformation):
     return rte, np.degrees(np.arccos(np.clip(x, -1, 1)))
 
 
-def evaluate_kitti(model: torch.nn.Module, config: Config, loader,
-                   num_devices: int = 1, register=None, mesh=None) -> Dict:
-    """``loader`` is a ``PairLoader`` of one pair a batch (random rotation
-    off); the model runs on the device of its parameters. ``register(i,
-    batch, f0, f1)`` replaces the default registration of pair ``i`` (its
-    draws from a generator seeded with ``i``), pair ``i`` being the i-th of
-    the loader's epoch, rejected pairs counted (``PairLoader.numbered``).
-    ``num_devices`` > 1 (0: every rank of ``mesh``) needs ``mesh`` with that
-    many ranks: each rank loads and registers its own pairs
-    (``PairLoader.for_rank``, ``parallel.dp.make_parallel_kitti_eval``), and
-    the transforms are gathered to all."""
-    D = num_devices if num_devices else (mesh.world_size if mesh is not None else 1)
-    if D > 1 and (mesh is None or mesh.world_size != D):
-        raise ValueError(f"evaluate_kitti: num_devices={D} runs on as many ranks; "
-                         f"this process is {'no rank' if mesh is None else mesh}")
-    dev = next(model.parameters()).device
-    register_pair = make_pair_registration(
+def make_pair_register(config: Config):
+    """``make_pair_registration`` as KITTI configures it: over every voxel
+    (the pad capacity as the keypoint count), the config's RANSAC, a
+    distance threshold of one voxel."""
+    return make_pair_registration(
         # the reference feeds the full voxelized clouds to RANSAC
         # (`evaluation_kitti.py:77-99`): num_keypoints = the pad capacity
         # makes the sampler keep every valid row
@@ -68,6 +64,57 @@ def evaluate_kitti(model: torch.nn.Module, config: Config, loader,
         # KITTI's RANSAC distance is voxel_size * 1.0 (evaluation_kitti.py:99)
         distance_multiplier=1.0,
     )
+
+
+def make_eval_pair(model: torch.nn.Module, config: Config, graphed: bool = True):
+    """eval_pair(i, batch) → the registration's metrics dict of pair ``i``
+    (a batch of one pair on the model's device): both eval-mode forwards
+    (``train.step.forward_pair``) and the default registration, whose draws
+    come from a generator seeded with ``i`` (keypoint keys, then RANSAC's
+    uniforms, as ``make_pair_registration`` draws them), made outside.
+    ``eval_pair.body(batch, eye6, u0, u1, samples)`` is the rest, one CUDA
+    graph per batch signature on the card (``graphed``; ``eval_pair.graphed``),
+    eager on the CPU; the card's metrics are the graph's outputs, cloned."""
+    register_pair = make_pair_register(config)
+
+    @torch.no_grad()
+    def body(batch, eye6, u0, u1, samples):
+        f0, f1 = forward_pair(model, batch, train=False, config=config)
+        return register_pair.body(batch.xyz0, f0, batch.n0, batch.xyz1, f1, batch.n1,
+                                  batch.T_gt[0], eye6, u0, u1, samples)
+
+    dev = next(model.parameters()).device
+    run = jit(body, clone=True) if graphed and dev.type == "cuda" else None
+
+    def eval_pair(i, batch):
+        gen = torch.Generator(device=dev).manual_seed(i)
+        (u0, u1), samples = register_pair.draws(batch.xyz0, batch.xyz1, gen)
+        return (run or body)(batch, torch.eye(6, device=dev), u0, u1, samples)
+
+    eval_pair.body = body
+    eval_pair.graphed = run
+    return eval_pair
+
+
+def evaluate_kitti(model: torch.nn.Module, config: Config, loader,
+                   num_devices: int = 1, register=None, mesh=None) -> Dict:
+    """``loader`` is a ``PairLoader`` of one pair a batch (random rotation
+    off); the model runs on the device of its parameters. ``register(i,
+    batch, f0, f1)`` replaces the default registration of pair ``i`` (its
+    draws from a generator seeded with ``i``), pair ``i`` being the i-th of
+    the loader's epoch, rejected pairs counted (``PairLoader.numbered``).
+    ``num_devices`` > 1 (0: every rank of ``mesh``) needs ``mesh`` with that
+    many ranks: each rank loads and registers its own pairs
+    (``PairLoader.for_rank``, ``parallel.dp.make_parallel_kitti_eval``), and
+    the transforms are gathered to all. One pair on one card with the
+    default registration replays ``make_eval_pair``'s graph."""
+    D = num_devices if num_devices else (mesh.world_size if mesh is not None else 1)
+    if D > 1 and (mesh is None or mesh.world_size != D):
+        raise ValueError(f"evaluate_kitti: num_devices={D} runs on as many ranks; "
+                         f"this process is {'no rank' if mesh is None else mesh}")
+    dev = next(model.parameters()).device
+    eval_pair = make_eval_pair(model, config) if register is None and D == 1 else None
+    register_pair = make_pair_register(config)
     eye6 = torch.eye(6, device=dev)
 
     def default_register(i, batch, f0, f1):
@@ -126,9 +173,12 @@ def evaluate_kitti(model: torch.nn.Module, config: Config, loader,
         for i, batch in loader.numbered():
             feat_timer.tic()
             batch = batch_to_device(batch, dev)
-            with torch.no_grad():
-                f0, f1 = forward_pair(model, batch, train=False, config=config)
-                T = register(i, batch, f0, f1)["transformation"].cpu().numpy()
+            if eval_pair is not None:
+                T = eval_pair(i, batch)["transformation"].cpu().numpy()
+            else:
+                with torch.no_grad():
+                    f0, f1 = forward_pair(model, batch, train=False, config=config)
+                    T = register(i, batch, f0, f1)["transformation"].cpu().numpy()
             feat_timer.toc()
             reg_timer.tic()
             account(i, batch.T_gt[0].cpu().numpy(), T)

@@ -54,7 +54,9 @@ def make_keypoint_registration(*, voxel_size: float = 0.025,
                                distance_multiplier: float = 1.5):
     """register_kp(kp0, kd0, ok0, kp1, kd1, ok1, T_gt, cov, *, generator,
     samples, swap) on sampled keypoints. The RANSAC correspondence distance is
-    ``voxel_size * distance_multiplier`` (1.5 for 3DMatch)."""
+    ``voxel_size * distance_multiplier`` (1.5 for 3DMatch).
+    ``register_kp.sample_shape`` is the shape of RANSAC's uniforms, which
+    ``samples`` may give in place of the draws from ``generator``."""
     distance_threshold = voxel_size * distance_multiplier
 
     def register_kp(kp0, kd0, ok0, kp1, kd1, ok1, T_gt, covariance, *,
@@ -98,6 +100,7 @@ def make_keypoint_registration(*, voxel_size: float = 0.025,
             "transformation": es_T,
         }
 
+    register_kp.sample_shape = sample_shape(num_hypotheses, hypo_block, ransac_n)
     return register_kp
 
 
@@ -117,12 +120,25 @@ def make_pair_registration(*, num_keypoints: int = 5000, voxel_size: float = 0.0
     As the JAX package jits it (``imfnet_tpu/eval/registration.py:145``),
     the rest is one CUDA graph per signature on the card
     (``utils.graphs.jit``; ``register.graphed``) and eager on the CPU. The
-    card's result is the graph's outputs, cloned."""
+    card's result is the graph's outputs, cloned. ``register.body(xyz0, f0,
+    n0, xyz1, f1, n1, T_gt, cov, u0, u1, samples)`` is what the graph holds
+    and ``register.draws(xyz0, xyz1, generator)`` the draws it takes
+    ((u0, u1), samples), for a caller that puts more into one graph
+    (``eval.kitti``)."""
     register_kp = make_keypoint_registration(
         voxel_size=voxel_size, ransac_n=ransac_n,
         num_hypotheses=num_hypotheses, inlier_thresh=inlier_thresh,
         hypo_block=hypo_block, distance_multiplier=distance_multiplier)
-    shape = sample_shape(num_hypotheses, hypo_block, ransac_n)
+
+    def keys(xyz0, xyz1, generator):
+        return tuple(torch.rand(x.shape[0], generator=generator, device=x.device)
+                     for x in (xyz0, xyz1))
+
+    def uniforms(dev, generator):
+        return torch.rand(register_kp.sample_shape, generator=generator, device=dev)
+
+    def draws(xyz0, xyz1, generator=None):
+        return keys(xyz0, xyz1, generator), uniforms(xyz0.device, generator)
 
     def body(xyz0, f0, n0, xyz1, f1, n1, T_gt, covariance, u0, u1, samples):
         v0 = torch.arange(xyz0.shape[0], device=xyz0.device) < n0
@@ -132,24 +148,25 @@ def make_pair_registration(*, num_keypoints: int = 5000, voxel_size: float = 0.0
         return register_kp(xyz0[i0], f0[i0], ok0, xyz1[i1], f1[i1], ok1, T_gt,
                            covariance, samples=samples)
 
-    graphed = jit(body)
+    graphed = jit(body, clone=True)
 
     def register(xyz0, f0, n0, xyz1, f1, n1, T_gt, covariance, *,
                  generator: Optional[torch.Generator] = None,
                  keypoint_u=None, samples=None):
         dev = xyz0.device
         if keypoint_u is None:
-            keypoint_u = tuple(torch.rand(x.shape[0], generator=generator, device=dev)
-                               for x in (xyz0, xyz1))
+            keypoint_u = keys(xyz0, xyz1, generator)
         if samples is None:
-            samples = torch.rand(shape, generator=generator, device=dev)
+            samples = uniforms(dev, generator)
         args = [xyz0, f0, n0, xyz1, f1, n1, T_gt, covariance, *keypoint_u, samples]
         if dev.type != "cuda":
             return body(*args)
         # counts and poses given on the host become device tensors here,
         # outside the graph
         args = [torch.as_tensor(a, device=dev) for a in args]
-        return {k: v.clone() for k, v in graphed(*args).items()}
+        return graphed(*args)
 
     register.graphed = graphed
+    register.body = body
+    register.draws = draws
     return register

@@ -37,6 +37,7 @@ from imfnet_tpu_torch.geom.image import load_image, process_image
 from imfnet_tpu_torch.geom.ply import read_ply
 from imfnet_tpu_torch.geom.trajectory import read_info_file, read_log
 from imfnet_tpu_torch.utils.device import resolve_device
+from imfnet_tpu_torch.utils.graphs import jit
 from imfnet_tpu_torch.utils.hashing import voxel_key_rows
 
 TEST_SCENE_NAMES = [
@@ -251,20 +252,39 @@ def sample_or_load_keypoints(
     return inds_i, inds_j
 
 
-def make_scene_register(config: Config, inlier_thresh: float, device=None):
+def make_scene_register(config: Config, inlier_thresh: float, device=None,
+                        graphed: bool = True):
     """register(k, kp0, kd0, ok0, kp1, kd1, ok1, T_gt, cov, *, swap) on the
     device: ``register_kp`` with the RANSAC draws of pair ``k`` from a
-    generator on the device seeded with ``k``."""
+    generator on the device seeded with ``k``.
+
+    As the JAX package jits it (``imfnet_tpu/eval/threedmatch.py:344,583``,
+    static ``swap``), the card replays one CUDA graph per (keypoint pad,
+    descriptor width, swap) (``graphed``; ``register.graphed``), RANSAC's
+    uniforms drawn outside from the pair's generator, so the result is
+    bit-equal to the eager call's; its metrics are the graph's outputs,
+    cloned. The CPU runs eagerly."""
     dev = resolve_device(device)
     register_kp = make_keypoint_registration(
         voxel_size=config.voxel_size, ransac_n=config.ransac_n,
         num_hypotheses=config.ransac_max_iteration, inlier_thresh=inlier_thresh)
+    run = None
+    if graphed and dev.type == "cuda":
+        run = jit(lambda kp0, kd0, ok0, kp1, kd1, ok1, T_gt, cov, samples, swap: register_kp(
+            kp0, kd0, ok0, kp1, kd1, ok1, T_gt, cov, samples=samples, swap=swap), clone=True)
 
     def register(k, kp0, kd0, ok0, kp1, kd1, ok1, T_gt, covariance, *, swap: bool):
         gen = torch.Generator(device=dev).manual_seed(k)
-        return register_kp(kp0, kd0, ok0, kp1, kd1, ok1, T_gt, covariance,
-                           generator=gen, swap=swap)
+        if run is None:
+            return register_kp(kp0, kd0, ok0, kp1, kd1, ok1, T_gt, covariance,
+                               generator=gen, swap=swap)
+        samples = torch.rand(register_kp.sample_shape, generator=gen, device=dev)
+        # a pose or covariance given on the host reaches the card here, outside
+        T_gt, covariance = (torch.as_tensor(t, dtype=torch.float32, device=dev)
+                            for t in (T_gt, covariance))
+        return run(kp0, kd0, ok0, kp1, kd1, ok1, T_gt, covariance, samples, bool(swap))
 
+    register.graphed = run
     return register
 
 

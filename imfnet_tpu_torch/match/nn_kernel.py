@@ -14,8 +14,11 @@ cluster, whose bests merge by (distance, lowest index). Each pair's
 distance folds into a running (d, index) (``fold="pair"``, D = 32); at
 D = 3, where that fold costs more than the dot, the ``"min"`` fold keeps a
 running minimum alone and recovers the index by re-walking the one tile
-that last lowered it. ``nn_plan`` chooses fold, tile and split from the
-shape; ``flash_nn`` is the port's entry point and ``run_plan`` launches a
+that last lowered it. Every other width takes the ``"chunk"`` fold: D
+zero-padded to a multiple of ``CHUNK_K`` (as the TPU kernel pads it), the
+contraction staged ``CHUNK_K`` rows at a time, so its shared memory does
+not grow with D, then the pair fold's (d, index) fold and merges.
+``nn_plan`` chooses fold, tile and split from the shape; ``flash_nn`` is the port's entry point and ``run_plan`` launches a
 given plan, for ``chip_smoke.py``'s sweep and the card tests.
 """
 from __future__ import annotations
@@ -25,9 +28,10 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from imfnet_tpu_torch.utils import cuda_build
+from imfnet_tpu_torch.utils import cuda_build, launches
 
-KERNEL_DIMS = (3, 32)
+KERNEL_DIMS = (3, 32)     # the widths with a fold of their own; any other D >= 1
+                          # takes the chunk fold
 
 # The plan, chosen from chip_smoke.py's sweep of every tile and split at
 # 5000 x 5000 x 32 on the H100 (PERF.md):
@@ -50,7 +54,11 @@ NN_MIN_GEOMETRY = {(64, 128, 128): (8, 8, 8, 16), (128, 128, 256): (8, 8, 16, 16
                    (256, 128, 128): (16, 16, 16, 8)}
 NN_MIN_TILES = frozenset(NN_MIN_GEOMETRY)
 NN_MIN_TILE = (256, 128, 128)   # the D = 3 plan's tile: 16 x 16 a thread
-FOLDS = ("pair", "min")
+# the chunk fold's instances (any D; 8 x 8 dots a thread) and its plan's tile
+NN_CHUNK_TILES = frozenset({(64, 128, 128), (128, 128, 256)})
+NN_CHUNK_TILE = (64, 128, 128)
+CHUNK_K = 8               # rows of the contraction a stage of the chunk fold holds
+FOLDS = ("pair", "min", "chunk")
 
 
 class NNPlan(NamedTuple):
@@ -80,13 +88,24 @@ class NNPlan(NamedTuple):
                 for p in range(self.split)]
 
 
+def padded_width(d: int, fold: str) -> int:
+    """The rows of components the kernel's k-major scratch holds: D, or D
+    zero-padded to a multiple of ``CHUNK_K`` for the chunk fold."""
+    return -(-d // CHUNK_K) * CHUNK_K if fold == "chunk" else d
+
+
 def nn_smem_bytes(bq: int, br: int, d: int, fold: str = "pair") -> int:
-    """Shared memory of one block (``NnTile::smem_bytes`` and
-    ``Nn3Tile::smem_bytes`` in ``csrc/flash_nn.cu``): the ring of reference
+    """Shared memory of one block (``NnTile``, ``Nn3Tile`` and
+    ``NnkTile::smem_bytes`` in ``csrc/flash_nn.cu``): the ring of reference
     tiles, each row k-major with its squared norms, no smaller than the 16
     per-thread bests of every query row that reuse it, and one (d, index)
     per query; the pair fold also keeps the query tile there, the min fold
-    its queries in registers."""
+    its queries in registers. The chunk fold's ring stages ``CHUNK_K`` rows
+    of the query and the reference tile and the references' norms, the same
+    at every D."""
+    if fold == "chunk":
+        stage = CHUNK_K * bq + (CHUNK_K + 1) * br
+        return (max(NN_STAGES * stage, 32 * bq) + 2 * bq) * 4
     ring = max(NN_STAGES * (d + 1) * br, 32 * bq)
     queries = (d + 1) * bq if fold == "pair" else 0
     return (queries + ring + 2 * bq) * 4
@@ -95,7 +114,8 @@ def nn_smem_bytes(bq: int, br: int, d: int, fold: str = "pair") -> int:
 def built(plan: NNPlan, d: int) -> bool:
     """Whether csrc/flash_nn.cu has an instance for ``plan`` at width ``d``."""
     tiles = {"pair": NN_TILES if d == 32 else frozenset(),
-             "min": NN_MIN_TILES if d == 3 else frozenset()}
+             "min": NN_MIN_TILES if d == 3 else frozenset(),
+             "chunk": NN_CHUNK_TILES if d >= 1 else frozenset()}
     return (plan.bq, plan.br, plan.threads) in tiles.get(plan.fold, frozenset())
 
 
@@ -106,11 +126,14 @@ def nn_plan(n: int, m: int, d: int) -> NNPlan:
     D = 3 takes the min fold in ``NN_MIN_TILE``, chosen from chip_smoke.py's
     sweep at the positive search's and ICP's shapes (where it beat every
     pair-fold tile, which D = 3 therefore no longer builds); D = 32 the
-    pair fold in ``NN_TILE``, chosen from the sweep at 5000 × 5000 × 32. ``n`` queries give ``ceil(n / bq)`` query tiles, 40 at
+    pair fold in ``NN_TILE``, chosen from the sweep at 5000 × 5000 × 32;
+    every other D the chunk fold in ``NN_CHUNK_TILE``, the same tile. ``n``
+    queries give ``ceil(n / bq)`` query tiles, 40 at
     the main path's 5000, too few for 132 SMs; the references are split
     over the fewest blocks (at most ``MAX_SPLIT`` and the number of
     reference tiles) that give ``TARGET_BLOCKS`` blocks."""
-    (bq, br, threads), fold = (NN_MIN_TILE, "min") if d == 3 else (NN_TILE, "pair")
+    (bq, br, threads), fold = {3: (NN_MIN_TILE, "min"), 32: (NN_TILE, "pair")}.get(
+        d, (NN_CHUNK_TILE, "chunk"))
     q_tiles = max(1, -(-n // bq))
     r_tiles = max(1, -(-m // br))
     split = min(-(-TARGET_BLOCKS // q_tiles), MAX_SPLIT, r_tiles)
@@ -162,7 +185,7 @@ def flash_nn(queries: torch.Tensor, refs: torch.Tensor,
              ref_valid: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(idx int32[N], d2 f32[N]). CUDA tensors launch kernel B in the plan
-    ``nn_plan`` gives the shape (D must be 3 or 32; the launch is counted in
+    ``nn_plan`` gives the shape (any D >= 1; the launch is counted in
     ``flash_nn.launches``); CPU tensors run the plain version."""
     _check(queries, refs, ref_valid)
     if queries.device.type == "cpu":
@@ -184,8 +207,8 @@ def run_plan(queries: torch.Tensor, refs: torch.Tensor,
                          f"runs on CUDA tensors")
     n, d = queries.shape
     m = refs.shape[0]
-    if d not in KERNEL_DIMS:
-        raise ValueError(f"flash_nn: the kernel serves D in {KERNEL_DIMS}, got {d}")
+    if d < 1:
+        raise ValueError(f"flash_nn: the kernel serves D >= 1, got {d}")
     if (not built(plan, d) or not 1 <= plan.split <= MAX_SPLIT
             or nn_smem_bytes(plan.bq, plan.br, d, plan.fold) > SMEM_LIMIT):
         raise ValueError(f"flash_nn: no kernel instance for {plan} at D = {d}")
@@ -194,7 +217,8 @@ def run_plan(queries: torch.Tensor, refs: torch.Tensor,
     if n == 0:
         return out_i, out_d
     rows = sum(-(-k // SCRATCH_PAD) * SCRATCH_PAD for k in (n, m))
-    scratch = torch.empty(((d + 1) * rows,), dtype=torch.float32, device=queries.device)
+    scratch = torch.empty(((padded_width(d, plan.fold) + 1) * rows,), dtype=torch.float32,
+                          device=queries.device)
     lib = _library()
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -204,7 +228,7 @@ def run_plan(queries: torch.Tensor, refs: torch.Tensor,
             scratch.data_ptr(), out_i.data_ptr(), out_d.data_ptr(), n, m, d,
             plan.bq, plan.br, plan.threads, plan.split, FOLDS.index(plan.fold), stream)
     cuda_build.check(rc, "flash_nn")
-    flash_nn.launches += 1
+    launches.count(flash_nn)
     return out_i, out_d
 
 

@@ -96,7 +96,8 @@ class PairRegistrar:
                  state_dict=None, seed: int = 0, compact_impl: str = "auto",
                  map_impl: str = "search", graphed: bool = True):
         self.device = resolve_device(device)
-        self.graphed = jit(self.chain) if graphed and self.device.type == "cuda" else None
+        self.graphed = (jit(self.chain, clone=True) if graphed and self.device.type == "cuda"
+                        else None)
         self.config = config if config is not None else bench_config()
         self.compact_impl = compact_impl
         self.map_impl = map_impl
@@ -227,4 +228,4 @@ class PairRegistrar:
         ku, s = self.draws(q, generator, keypoint_u, samples)
         if self.graphed is None:
             return self.chain(q, pb.images, T_gt, cov, ku, s)
-        return {k: v.clone() for k, v in self.graphed(q, pb.images, T_gt, cov, ku, s).items()}
+        return self.graphed(q, pb.images, T_gt, cov, ku, s)

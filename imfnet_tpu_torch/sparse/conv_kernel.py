@@ -32,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from imfnet_tpu_torch.utils import cuda_build
+from imfnet_tpu_torch.utils import cuda_build, launches
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -238,9 +238,8 @@ def run_plan(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
             _VARIANTS[plan.variant], plan.bm, plan.bn, plan.bk, plan.split,
             stream)
     cuda_build.check(rc, "sparse_conv_gather_gemm")
-    gather_gemm.launches += 1
-    attr = f"launches_{plan.variant}"
-    setattr(gather_gemm, attr, getattr(gather_gemm, attr) + 1)
+    launches.count(gather_gemm)
+    launches.count(gather_gemm, f"launches_{plan.variant}")
     return out
 
 

@@ -22,7 +22,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from imfnet_tpu_torch.sparse.coords import compact_first
-from imfnet_tpu_torch.utils import cuda_build
+from imfnet_tpu_torch.utils import cuda_build, launches
 
 INVALID_KEY = torch.iinfo(torch.int64).max
 TILE = 2048   # sorted rows per CUDA block; must equal TILE in the source
@@ -122,7 +122,7 @@ def sorted_compact(sk: torch.Tensor, order: torch.Tensor,
                                 scratch.data_ptr(), num_tiles,
                                 sel.data_ptr(), n_out, count.data_ptr(), stream)
     cuda_build.check(rc, "sorted_compact")
-    sorted_compact.launches += 1
+    launches.count(sorted_compact)
     return sel, count
 
 

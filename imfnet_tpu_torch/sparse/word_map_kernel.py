@@ -29,7 +29,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from imfnet_tpu_torch.utils import cuda_build
+from imfnet_tpu_torch.utils import cuda_build, launches
 
 
 def word_match_plain(wkeys: torch.Tensor, payload: torch.Tensor,
@@ -135,7 +135,7 @@ def word_match_many(problems: Sequence[Problem]) -> List[torch.Tensor]:
                 for group in [query_group(q.shape)]])
             rc = lib.word_match_many(table, len(chunk), stream)
             cuda_build.check(rc, "word_match_many")
-            word_match_many.launches += 1
+            launches.count(word_match_many)
     return outs
 
 

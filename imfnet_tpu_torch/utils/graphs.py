@@ -28,40 +28,47 @@ What ``fn`` must keep to:
   replay, so they must keep their storage;
 - its result is made of tensors (in tuples, lists, dicts, NamedTuples) and
   None. A replay writes the same tensors again: clone what is kept past the
-  next call.
+  next call, or ask ``jit(fn, clone=True)`` to return clones.
 
-Kernel launch counters (``KERNEL_COUNTERS``) move at replay as they would in
-an eager call: the launches a capture counts are taken off again and added
-once per replay. A capture that fails raises; nothing falls back to eager.
+Kernel launch counters (``kernel_counters``) move at replay as they would in
+an eager call: the launches recorded on a capture's stream are tallied for
+it alone (``utils.launches``) and added once per replay. A capture that fails raises;
+nothing falls back to eager.
+
+Threads: a capture runs in ``thread_local`` error mode, so another thread's
+allocations and synchronizing calls (a loader's producer thread running its
+own graphs or eager kernels) neither fail it nor are failed by it. One
+``Graphed`` may be called from several threads: a lock holds its warm-up,
+capture, copy-in, replay and, with ``clone``, the clones, and each replay
+waits on the card for the one before it, whichever stream that ran on.
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
-from imfnet_tpu_torch.match.nn_kernel import flash_nn
-from imfnet_tpu_torch.sparse.conv_kernel import gather_gemm
-from imfnet_tpu_torch.sparse.quant_kernel import sorted_compact
-from imfnet_tpu_torch.sparse.word_map_kernel import word_match_many
+from imfnet_tpu_torch.utils import launches
 
-# every kernel wrapper's launch counter: (wrapper, attribute)
-KERNEL_COUNTERS = (
-    (gather_gemm, "launches"), (gather_gemm, "launches_tc"),
-    (gather_gemm, "launches_cin1"), (gather_gemm, "launches_scalar"),
-    (flash_nn, "launches"), (sorted_compact, "launches"),
-    (word_match_many, "launches"),
-)
+
+def kernel_counters() -> Tuple[launches.Counter, ...]:
+    """Every kernel wrapper's launch counter: (wrapper, attribute). (The
+    wrappers are imported here, not with the module: ``match`` imports
+    this module for ICP.)"""
+    from imfnet_tpu_torch.match.nn_kernel import flash_nn
+    from imfnet_tpu_torch.sparse.conv_kernel import gather_gemm
+    from imfnet_tpu_torch.sparse.quant_kernel import sorted_compact
+    from imfnet_tpu_torch.sparse.word_map_kernel import word_match_many
+    return ((gather_gemm, "launches"), (gather_gemm, "launches_tc"),
+            (gather_gemm, "launches_cin1"), (gather_gemm, "launches_scalar"),
+            (flash_nn, "launches"), (sorted_compact, "launches"),
+            (word_match_many, "launches"))
 
 
 def _read_counters() -> Tuple[int, ...]:
-    return tuple(getattr(fn, attr) for fn, attr in KERNEL_COUNTERS)
-
-
-def _add_counters(counts: Tuple[int, ...], sign: int = 1) -> None:
-    for (fn, attr), n in zip(KERNEL_COUNTERS, counts):
-        setattr(fn, attr, getattr(fn, attr) + sign * n)
+    return tuple(getattr(fn, attr) for fn, attr in kernel_counters())
 
 
 def _leaf_key(leaf: Any):
@@ -159,7 +166,7 @@ class _Graph:
         self.graph = torch.cuda.CUDAGraph()
         self.out_leaves: List[Optional[torch.Tensor]] = []
         self.out_spec = None
-        self.counts: Tuple[int, ...] = ()
+        self.counts: Dict[launches.Counter, int] = {}
 
     def copy_in(self, leaves) -> None:
         for slab in self.slabs:
@@ -172,11 +179,14 @@ class _Graph:
 class Graphed:
     """``fn`` behind one CUDA graph per argument signature (``jit``)."""
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, clone: bool = False):
         self.fn = fn
+        self.clone = clone
         self.graphs: Dict[Any, _Graph] = {}
         self._warm: set = set()      # signatures whose eager warm-up has run
         self._stream: Optional[torch.cuda.Stream] = None
+        self._lock = threading.Lock()
+        self._done: Optional[torch.cuda.Event] = None   # the last replay's end
         self.replays = 0      # replays of any of this function's graphs
         self.captures = 0
 
@@ -189,20 +199,27 @@ class Graphed:
             if t.device.type != "cuda":
                 raise ValueError(f"jit: a CUDA graph takes CUDA tensors, got one on {t.device}")
         key = (spec, tuple(_leaf_key(x) for x in leaves))
-        entry = self.graphs.get(key)
-        if entry is None:
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(tensors[0].device)
-            if key not in self._warm:
-                self._warm.add(key)
-                return self._on_side_stream(args)
-            entry = self.graphs[key] = self._capture(leaves, spec)
-            self.captures += 1
-        entry.copy_in(leaves)
-        entry.graph.replay()
-        _add_counters(entry.counts)
-        self.replays += 1
-        return tree_unflatten(list(entry.out_leaves), entry.out_spec)
+        with self._lock:
+            entry = self.graphs.get(key)
+            if entry is None:
+                if self._stream is None:
+                    self._stream = torch.cuda.Stream(tensors[0].device)
+                if key not in self._warm:
+                    self._warm.add(key)
+                    return self._on_side_stream(args)
+                entry = self.graphs[key] = self._capture(leaves, spec)
+                self.captures += 1
+            stream = torch.cuda.current_stream(tensors[0].device)
+            if self._done is not None:     # a replay on another stream has ended
+                stream.wait_event(self._done)
+            entry.copy_in(leaves)
+            entry.graph.replay()
+            launches.add(entry.counts)
+            self.replays += 1
+            out = [t.clone() if self.clone and t is not None else t for t in entry.out_leaves]
+            self._done = torch.cuda.Event()
+            self._done.record(stream)
+        return tree_unflatten(out, entry.out_spec)
 
     def _on_side_stream(self, args):
         side, main = self._stream, torch.cuda.current_stream()
@@ -216,14 +233,12 @@ class Graphed:
         entry = _Graph(leaves)
         side = self._stream
         side.wait_stream(torch.cuda.current_stream())
-        before = _read_counters()
-        try:
-            with torch.cuda.graph(entry.graph, stream=side):
-                out = self.fn(*tree_unflatten(entry.static, spec))
-        finally:
-            # the capture launched nothing: its counts are a replay's
-            entry.counts = tuple(a - b for a, b in zip(_read_counters(), before))
-            _add_counters(entry.counts, -1)
+        # the capture launched nothing: what is counted on its stream (the
+        # backward's launches from autograd's thread too) is a replay's
+        with launches.tallied(side.cuda_stream) as tally, \
+                torch.cuda.graph(entry.graph, stream=side, capture_error_mode="thread_local"):
+            out = self.fn(*tree_unflatten(entry.static, spec))
+        entry.counts = tally
         torch.cuda.current_stream().wait_stream(side)
         entry.out_leaves, entry.out_spec = tree_flatten(out)
         for t in entry.out_leaves:
@@ -236,13 +251,14 @@ class Graphed:
         """{"wrapper.attribute": launches} of one replay of each graph,
         summed over this function's graphs (one graph: its launches a
         call)."""
-        total = [0] * len(KERNEL_COUNTERS)
-        for g in self.graphs.values():
-            total = [a + b for a, b in zip(total, g.counts)]
-        return {f"{fn.__name__}.{attr}": n for (fn, attr), n in zip(KERNEL_COUNTERS, total)}
+        return {f"{fn.__name__}.{attr}": sum(g.counts.get((fn, attr), 0)
+                                             for g in self.graphs.values())
+                for fn, attr in kernel_counters()}
 
 
-def jit(fn: Callable) -> Graphed:
+def jit(fn: Callable, *, clone: bool = False) -> Graphed:
     """``fn`` captured as a CUDA graph per argument signature and replayed
-    (see the module's docstring). Raises for arguments off the card."""
-    return Graphed(fn)
+    (see the module's docstring); with ``clone`` a replay returns clones of
+    the graph's outputs, made under its lock. Raises for arguments off the
+    card."""
+    return Graphed(fn, clone)

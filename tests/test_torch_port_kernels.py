@@ -10,8 +10,8 @@ import pytest
 import torch
 
 from imfnet_tpu_torch.match import nn_kernel
-from imfnet_tpu_torch.match.nn_kernel import (NN_MIN_TILES, NN_TILES, NNPlan, flash_nn,
-                                                nn_plain, nn_plan)
+from imfnet_tpu_torch.match.nn_kernel import (NN_CHUNK_TILES, NN_MIN_TILES, NN_TILES, NNPlan,
+                                                flash_nn, nn_plain, nn_plan)
 from imfnet_tpu_torch.sparse.conv_kernel import (TC_TILES, ConvPlan, conv_plan,
                                                  gather_gemm, gather_gemm_plain, run_plan)
 from imfnet_tpu_torch.sparse.quant_kernel import (INVALID_KEY, sorted_compact,
@@ -209,9 +209,55 @@ def test_flash_nn_matches_plain(gen, d, valid_kind):
         torch.testing.assert_close(d_k, d_p, rtol=0, atol=1e-4)
 
 
+# widths without a fold of their own (the chunk fold): model_n_out values
+OTHER_WIDTHS = (1, 5, 8, 16, 24, 64, 256)
+
+
+def _unit_rows(gen, k, d):
+    """Unit rows, as descriptors are: d² below 4 at every width."""
+    x = torch.randn((k, d), generator=gen, device="cuda")
+    return x / x.norm(dim=1, keepdim=True)
+
+
+@pytest.mark.parametrize("d", OTHER_WIDTHS)
+@pytest.mark.parametrize("valid_kind", ["all", "some", "none"])
+def test_flash_nn_at_any_width_matches_plain(gen, d, valid_kind):
+    """Every D >= 1 launches the kernel (the chunk fold over D padded to a
+    multiple of 8): indices equal the plain version's, d² within 1e-4, two
+    calls bit-equal."""
+    q, r = _unit_rows(gen, 1000, d), _unit_rows(gen, 1500, d)
+    valid = {"all": torch.ones(1500, dtype=torch.bool, device="cuda"),
+             "some": torch.rand(1500, generator=gen, device="cuda") > 0.3,
+             "none": torch.zeros(1500, dtype=torch.bool, device="cuda")}[valid_kind]
+    assert nn_plan(1000, 1500, d).fold == "chunk"
+    before = flash_nn.launches
+    i_k, d_k = flash_nn(q, r, valid)
+    torch.cuda.synchronize()
+    assert flash_nn.launches == before + 1
+    if valid_kind == "none":
+        assert (i_k == 0).all() and torch.isinf(d_k).all()
+    else:   # at D = 1 unit rows are +-1: true ties, the lowest index wins
+        _assert_nn_equal(q, r, valid)
+
+
+def test_the_chunk_fold_at_d32_equals_the_pair_fold_bit_for_bit(gen):
+    """The same f32 dots, summed over the same components in the same
+    order by fmaf, folded and merged alike: at D = 32 the chunk fold's
+    results are the pair fold's, bit for bit, at every split."""
+    q = torch.randn((700, 32), generator=gen, device="cuda")
+    r = torch.randn((1500, 32), generator=gen, device="cuda")
+    valid = torch.rand(1500, generator=gen, device="cuda") > 0.2
+    for split in (1, 3, 8):
+        i_c, d_c = nn_kernel.run_plan(q, r, valid, NNPlan(64, 128, 128, split, "chunk"))
+        i_p, d_p = nn_kernel.run_plan(q, r, valid, NNPlan(64, 128, 128, split, "pair"))
+        assert torch.equal(i_c, i_p) and torch.equal(d_c, d_p)
+
+
 def test_flash_nn_rejects_other_widths(gen):
+    """Any D >= 1 launches (test_flash_nn_at_any_width_matches_plain); a
+    width of 0 has nothing to search and raises."""
     with pytest.raises(ValueError, match="serves D"):
-        flash_nn(torch.zeros((4, 8), device="cuda"), torch.zeros((5, 8), device="cuda"))
+        flash_nn(torch.zeros((4, 0), device="cuda"), torch.zeros((5, 0), device="cuda"))
 
 
 def _assert_nn_equal(q, r, valid, plan=None):
@@ -232,11 +278,13 @@ def _assert_nn_equal(q, r, valid, plan=None):
 
 @pytest.mark.parametrize("d,fold,bq,br,threads",
                          [(32, "pair", *t) for t in sorted(NN_TILES)]
-                         + [(3, "min", *t) for t in sorted(NN_MIN_TILES)])
+                         + [(3, "min", *t) for t in sorted(NN_MIN_TILES)]
+                         + [(d, "chunk", *t) for t in sorted(NN_CHUNK_TILES)
+                            for d in (16, 64)])
 @pytest.mark.parametrize("split", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_flash_nn_every_tile_and_split(gen, bq, br, threads, split, d, fold):
     """Every instance the kernel has (the pair fold at D = 32, the min fold
-    at D = 3), at an explicit plan, on sizes that are no multiple of a tile;
+    at D = 3, the chunk fold at D = 16 and 64), at an explicit plan, on sizes that are no multiple of a tile;
     with 1500 references the wider splits of a 128-wide tile leave parts
     with two tiles or one."""
     q = torch.randn((700, d), generator=gen, device="cuda")
@@ -247,7 +295,7 @@ def test_flash_nn_every_tile_and_split(gen, bq, br, threads, split, d, fold):
 
 @pytest.mark.parametrize("n", [1, 31, 129, 4999, 5003])
 @pytest.mark.parametrize("m", [1, 31, 129, 4999, 5003])
-@pytest.mark.parametrize("d", [32, 3])
+@pytest.mark.parametrize("d", [32, 3, 16])
 def test_flash_nn_ragged_sizes(gen, n, m, d):
     """Sizes around and below one tile, with a mask and with none; at
     m < 128 most parts of the split have no tile at all."""
@@ -257,7 +305,7 @@ def test_flash_nn_ragged_sizes(gen, n, m, d):
     _assert_nn_equal(q, r, None if n < m else valid)
 
 
-@pytest.mark.parametrize("d", [32, 3])
+@pytest.mark.parametrize("d", [32, 3, 16, 64])
 def test_flash_nn_ties_go_to_the_lowest_index(gen, d):
     """Every reference twice: both copies give bit-equal distances, and the
     kernel takes the first, whichever thread, tile or part holds it."""
@@ -301,6 +349,8 @@ def test_flash_nn_refuses_a_plan_without_an_instance(gen):
     q3 = q[:, :3].contiguous()     # the pair fold is not built at D = 3
     with pytest.raises(ValueError, match="no kernel instance"):
         nn_kernel.run_plan(q3, q3, None, NNPlan(64, 128, 128, 1))
+    with pytest.raises(ValueError, match="no kernel instance"):   # a tile the chunk fold lacks
+        nn_kernel.run_plan(q, q, None, NNPlan(64, 64, 256, 1, "chunk"))
 
 
 def _sorted_stream(gen, n, n_keys, invalid):

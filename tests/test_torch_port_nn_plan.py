@@ -11,13 +11,16 @@ import torch
 
 from imfnet_tpu.match.pallas_nn import nn_pallas
 
-from imfnet_tpu_torch.match.nn_kernel import (KERNEL_DIMS, MAX_SPLIT, NN_MIN_GEOMETRY, NN_MIN_TILE,
+from imfnet_tpu_torch.match.nn_kernel import (KERNEL_DIMS, MAX_SPLIT, NN_CHUNK_TILES,
+                                                NN_MIN_GEOMETRY, NN_MIN_TILE,
                                                 NN_MIN_TILES, NN_TILE, NN_TILES, SMEM_LIMIT,
                                                 TARGET_BLOCKS, NNPlan, built, flash_nn,
                                                 nn_plain, nn_plan, nn_smem_bytes, run_plan)
 
 H100_SMS = 132
 SIZES = [1, 31, 129, 5000, 5003]
+# the widths with a fold of their own and others, which take the chunk fold
+ALL_DIMS = KERNEL_DIMS + (1, 16, 64, 256)
 
 
 def split_emulation(q, r, valid, plan):
@@ -37,13 +40,13 @@ def split_emulation(q, r, valid, plan):
     return best_i, best_d
 
 
-@pytest.mark.parametrize("d", KERNEL_DIMS)
+@pytest.mark.parametrize("d", ALL_DIMS)
 @pytest.mark.parametrize("m", SIZES)
 @pytest.mark.parametrize("n", SIZES)
 def test_plan_covers_every_query_and_reference_once(n, m, d):
     plan = nn_plan(n, m, d)
     assert built(plan, d) and 1 <= plan.split <= MAX_SPLIT
-    assert plan.fold == ("min" if d == 3 else "pair")
+    assert plan.fold == {3: "min", 32: "pair"}.get(d, "chunk")
     assert nn_smem_bytes(plan.bq, plan.br, d, plan.fold) <= SMEM_LIMIT
     queries = [i for a, b in plan.query_ranges(n) for i in range(a, b)]
     assert queries == list(range(n))
@@ -85,14 +88,18 @@ def test_plan_holds_at_the_kitti_shapes(n, m, d):
 
 
 @pytest.mark.parametrize("bq,br,threads", sorted(NN_TILES))
-@pytest.mark.parametrize("d", KERNEL_DIMS)
+@pytest.mark.parametrize("d", ALL_DIMS)
 def test_every_instance_fits_shared_memory(bq, br, threads, d):
-    # the pair fold is built at D = 32; D = 3 takes the min fold
+    # the pair fold is built at D = 32; D = 3 takes the min fold, every
+    # other D the chunk fold, whose shared memory does not grow with D
     assert built(NNPlan(bq, br, threads, 1), d) == (d == 32)
-    assert nn_smem_bytes(bq, br, d) <= SMEM_LIMIT
+    assert (nn_smem_bytes(bq, br, d) <= SMEM_LIMIT) or d > 128
     # three stages of k-major reference tiles with their norms, the query
     # tile with its norms, one (d, index) per query
     assert nn_smem_bytes(bq, br, d) >= ((d + 1) * (bq + 3 * br) + 2 * bq) * 4
+    if (bq, br, threads) in NN_CHUNK_TILES:
+        assert built(NNPlan(bq, br, threads, 1, "chunk"), d)
+        assert nn_smem_bytes(bq, br, d, "chunk") <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("bq,br,threads", sorted(NN_MIN_TILES))
@@ -168,7 +175,7 @@ def test_split_emulation_equals_plain(case, split):
         torch.testing.assert_close(d2, ref_d, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("d", KERNEL_DIMS)
+@pytest.mark.parametrize("d", ALL_DIMS)
 @pytest.mark.parametrize("n,m", [(300, 700), (129, 5003), (31, 129)])
 def test_split_emulation_equals_pallas_kernel(n, m, d):
     """The plan's split, emulated, against the TPU kernel in interpret mode
