@@ -1,0 +1,10 @@
+"""forward_ms.kitti (ms): the device ms of the stage ``kitti.forward`` (both
+scans' forwards and pyramids) in a replay of eval-kitti's pair graph, from
+the graph's timing events, the median over the traced replays. Moves
+kitti_pairs_per_s."""
+from benchlib import program_trace
+
+
+def read(run):
+    rec = program_trace.record()
+    return None if rec is None else program_trace.stage_ms(run, rec, "kitti.forward")

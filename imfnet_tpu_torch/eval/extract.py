@@ -22,6 +22,13 @@ one pyramid graph per (bucket, path) and, after the host read of
 ``coarse_levels_fit``, one forward graph per (bucket, path). Kernel C's
 first capture at a size needs an eager call at that size before it: a
 signature's first call, which ``jit`` runs eagerly, is that call.
+
+While tracing (``utils.timer``), the bucketed extractor's host stages are
+the spans ``extract.pad`` (``pad_points_bucketed``), ``extract.prepare``
+(the extent bucket and the moves to the card), ``extract.read`` (each of
+its two host reads: the voxel count, ``coarse_levels_fit``) and
+``extract.copy_out`` (the copies of the results to the host); it counts
+the voxel bucket's ``extract.rows_valid`` and ``extract.rows_padded``.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from imfnet_tpu_torch.sparse.coords import SparseVoxels, quantize
 from imfnet_tpu_torch.sparse.grid import GridSpec, quantize_grid
 from imfnet_tpu_torch.sparse.kernel_map import coarse_levels_fit
 from imfnet_tpu_torch.train.step import make_pyramid_fn
+from imfnet_tpu_torch.utils import timer
 from imfnet_tpu_torch.utils.graphs import jit
 
 
@@ -70,11 +78,10 @@ DEFAULT_BUCKETS = (8192, 12288, 16384, 20480, 24576, 28672, 32768,
 def pad_points_bucketed(xyz: np.ndarray, raw_buckets=RAW_BUCKETS
                         ) -> Tuple[np.ndarray, int]:
     """Pad raw points to the smallest bucket that holds them all."""
-    n = len(xyz)
-    for b in sorted(raw_buckets):
-        if n <= b:
-            return pad_points(xyz, b)
-    return pad_points(xyz, max(raw_buckets))
+    with timer.span("extract.pad"):
+        n = len(xyz)
+        return pad_points(xyz, next((b for b in sorted(raw_buckets) if n <= b),
+                                    max(raw_buckets)))
 
 
 def _span_fits_grid(xyz_raw, n_raw, voxel_size: float, extent) -> bool:
@@ -232,16 +239,21 @@ def make_bucketed_extractor(model: torch.nn.Module, *, config: Config,
         stages = {k: jit(fn) for k, fn in stages.items()}
 
     def extract(xyz_raw, n_raw, image):
-        extent = pick_extent(xyz_raw, n_raw, vox, config)
-        xyz, valid = _raw_on(dev, xyz_raw, n_raw)
+        with timer.span("extract.prepare"):
+            extent = pick_extent(xyz_raw, n_raw, vox, config)
+            xyz, valid = _raw_on(dev, xyz_raw, n_raw)
+            image = _image_on(dev, image)
         sv, xyz_down = stages["quantize"](xyz, valid, extent)
-        n = int(sv.num_valid)
+        with timer.span("extract.read"):
+            n = int(sv.num_valid)
         start = next((i for i, b in enumerate(buckets) if b >= n), len(buckets) - 1)
         tried = []
         for bucket in buckets[start:]:
             tried.append(bucket)
             pyr, fits = stages["pyramid"](sv.coords, sv.num_valid, bucket, extent)
-            if bool(fits):
+            with timer.span("extract.read"):
+                fits = bool(fits)
+            if fits:
                 break
             logging.warning("fragment's coarse pyramid levels overflow bucket %d "
                             "capacities — escalating", bucket)
@@ -250,10 +262,12 @@ def make_bucketed_extractor(model: torch.nn.Module, *, config: Config,
                 f"make_bucketed_extractor: the coarse pyramid levels of a fragment "
                 f"of {n} voxels overflow even the largest bucket {n_max}; add a "
                 f"larger bucket or raise level_capacity_divisors")
-        feats = stages["forward"](sv.coords, sv.feats, sv.num_valid, pyr,
-                                  _image_on(dev, image), bucket)
+        timer.count("extract.rows_valid", n)
+        timer.count("extract.rows_padded", bucket)
+        feats = stages["forward"](sv.coords, sv.feats, sv.num_valid, pyr, image, bucket)
         extract.last = ExtractChoice(extent, n, bucket, tuple(tried))
-        return xyz_down[:n].cpu().numpy(), feats[:n].float().cpu().numpy()
+        with timer.span("extract.copy_out"):
+            return xyz_down[:n].cpu().numpy(), feats[:n].float().cpu().numpy()
 
     extract.last = None
     extract.graphed = stages if graphed and dev.type == "cuda" else None

@@ -33,6 +33,7 @@ from imfnet_tpu_torch.config import Config
 from imfnet_tpu_torch.eval.registration import make_pair_registration
 from imfnet_tpu_torch.train.step import forward_pair
 from imfnet_tpu_torch.train.trainer import batch_to_device
+from imfnet_tpu_torch.utils import timer
 from imfnet_tpu_torch.utils.graphs import jit
 from imfnet_tpu_torch.utils.timer import AverageMeter, Timer
 
@@ -74,11 +75,14 @@ def make_eval_pair(model: torch.nn.Module, config: Config, graphed: bool = True)
     uniforms, as ``make_pair_registration`` draws them), made outside.
     ``eval_pair.body(batch, eye6, u0, u1, samples)`` is the rest, one CUDA
     graph per batch signature on the card (``graphed``; ``eval_pair.graphed``),
-    eager on the CPU; the card's metrics are the graph's outputs, cloned."""
+    eager on the CPU; the card's metrics are the graph's outputs, cloned.
+    The graph's first stage (``utils.timer.stage``) is ``kitti.forward``
+    (both forwards)."""
     register_pair = make_pair_register(config)
 
     @torch.no_grad()
     def body(batch, eye6, u0, u1, samples):
+        timer.stage("kitti.forward")
         f0, f1 = forward_pair(model, batch, train=False, config=config)
         return register_pair.body(batch.xyz0, f0, batch.n0, batch.xyz1, f1, batch.n1,
                                   batch.T_gt[0], eye6, u0, u1, samples)

@@ -2,6 +2,10 @@
 `scripts/evaluation_3dmatch.py:89-236`): keypoint sampling, descriptor NN in
 both directions, RANSAC, the covariance RR test, RRE/RTE, and the mutual-NN
 inlier ratio for FMR.
+
+Inside a CUDA graph the stages are ``registration.keypoints`` (the pair
+registration's sampling), ``registration.nn`` (both NN directions) and
+``registration.ransac`` (RANSAC and the metrics): ``utils.timer.stage``.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ from imfnet_tpu_torch.match.metrics import (apply_transform, inlier_ratio, inver
                                             registration_error, transform_error)
 from imfnet_tpu_torch.match.nn import nn_auto
 from imfnet_tpu_torch.match.ransac import ransac_registration, sample_shape
+from imfnet_tpu_torch.utils import timer
 from imfnet_tpu_torch.utils.graphs import jit
 
 
@@ -61,8 +66,10 @@ def make_keypoint_registration(*, voxel_size: float = 0.025,
 
     def register_kp(kp0, kd0, ok0, kp1, kd1, ok1, T_gt, covariance, *,
                     generator=None, samples=None, swap: bool = False):
+        timer.stage("registration.nn")
         nn01 = nn_auto(kd0, kd1, ok1)[0].long()
         nn10 = nn_auto(kd1, kd0, ok0)[0].long()
+        timer.stage("registration.ransac")
         kw = dict(ransac_n=ransac_n, num_hypotheses=num_hypotheses,
                   hypo_block=hypo_block, generator=generator, samples=samples)
         if swap:
@@ -141,6 +148,7 @@ def make_pair_registration(*, num_keypoints: int = 5000, voxel_size: float = 0.0
         return keys(xyz0, xyz1, generator), uniforms(xyz0.device, generator)
 
     def body(xyz0, f0, n0, xyz1, f1, n1, T_gt, covariance, u0, u1, samples):
+        timer.stage("registration.keypoints")
         v0 = torch.arange(xyz0.shape[0], device=xyz0.device) < n0
         v1 = torch.arange(xyz1.shape[0], device=xyz1.device) < n1
         i0, ok0 = sample_keypoints(v0, num_keypoints, u=u0)

@@ -15,6 +15,13 @@ RANSAC's uniforms, then replays one CUDA graph per bucket for the rest:
 pyramid, forward, keypoints, both NN directions, RANSAC and the metrics,
 as the JAX package's ``bench.py`` jits the forward and the registration
 (``utils.graphs.jit``; ``graphed=False`` runs the stages eagerly).
+
+While tracing (``utils.timer``), the host stages are the spans
+``pipeline.prepare``, ``pipeline.quantize`` (with its voxel-count read,
+``pipeline.quantize.read``) and ``pipeline.draws``; quantize counts the
+bucket's ``rows_valid`` and ``rows_padded``; the graph's stages are
+``pipeline.pyramid``, ``pipeline.forward``, ``pipeline.keypoints``, then
+the registration's ``registration.nn`` and ``registration.ransac``.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from imfnet_tpu_torch.sparse.coords import SparseVoxels
 from imfnet_tpu_torch.sparse.grid import GridSpec, quantize_grid
 from imfnet_tpu_torch.sparse.kernel_map import CoordinatePyramid, coarse_levels_fit
 from imfnet_tpu_torch.train.step import make_pyramid_fn
+from imfnet_tpu_torch.utils import timer
 from imfnet_tpu_torch.utils.device import resolve_device
 from imfnet_tpu_torch.utils.graphs import jit
 
@@ -117,43 +125,48 @@ class PairRegistrar:
                 image1: np.ndarray) -> PairBatch:
         """Host side: pad each fragment's raw points to its bucket, pick the
         grid-extent bucket, and move the 2-batch to the device."""
-        c = self.config
-        raw0, n0 = pad_points_bucketed(np.asarray(xyz0, np.float32))
-        raw1, n1 = pad_points_bucketed(np.asarray(xyz1, np.float32))
-        ext0 = pick_extent(raw0, n0, c.voxel_size, c)
-        ext1 = pick_extent(raw1, n1, c.voxel_size, c)
-        extent = (tuple(c.grid_extent) if ext0 is None or ext1 is None
-                  else max(ext0, ext1))
-        b0, b1 = len(raw0), len(raw1)
-        valid = np.zeros(b0 + b1, bool)
-        valid[:n0] = True
-        valid[b0:b0 + n1] = True
-        batch = np.concatenate([np.zeros(b0, np.int32), np.ones(b1, np.int32)])
-        images = np.stack([np.asarray(image0, np.float32),
-                           np.asarray(image1, np.float32)])
-        dev = self.device
-        return PairBatch(
-            torch.from_numpy(np.concatenate([raw0, raw1])).to(dev),
-            torch.from_numpy(batch).to(dev), torch.from_numpy(valid).to(dev),
-            torch.from_numpy(images).to(dev), GridSpec(extent=extent, num_batches=2))
+        with timer.span("pipeline.prepare"):
+            c = self.config
+            raw0, n0 = pad_points_bucketed(np.asarray(xyz0, np.float32))
+            raw1, n1 = pad_points_bucketed(np.asarray(xyz1, np.float32))
+            ext0 = pick_extent(raw0, n0, c.voxel_size, c)
+            ext1 = pick_extent(raw1, n1, c.voxel_size, c)
+            extent = (tuple(c.grid_extent) if ext0 is None or ext1 is None
+                      else max(ext0, ext1))
+            b0, b1 = len(raw0), len(raw1)
+            valid = np.zeros(b0 + b1, bool)
+            valid[:n0] = True
+            valid[b0:b0 + n1] = True
+            batch = np.concatenate([np.zeros(b0, np.int32), np.ones(b1, np.int32)])
+            images = np.stack([np.asarray(image0, np.float32),
+                               np.asarray(image1, np.float32)])
+            dev = self.device
+            return PairBatch(
+                torch.from_numpy(np.concatenate([raw0, raw1])).to(dev),
+                torch.from_numpy(batch).to(dev), torch.from_numpy(valid).to(dev),
+                torch.from_numpy(images).to(dev), GridSpec(extent=extent, num_batches=2))
 
     def quantize(self, pb: PairBatch) -> Quantized:
         """One 2-batch quantize at the voxel ceiling, then the rows cut to
         the smallest 2-batch bucket that holds them (scan order keeps valid
         rows in front, so the cut equals quantizing at that bucket). Reads
         the voxel count back to the host once."""
-        n = pb.xyz.shape[0]
-        ones = torch.ones((n, 1), device=self.device)
-        sv, _, xyz_down = quantize_grid(pb.xyz, ones, pb.valid,
-                                        self.config.voxel_size, 2 * N_PAD_MAX,
-                                        pb.spec, batch_index=pb.batch,
-                                        compact_impl=self.compact_impl)
-        n_vox = int(sv.num_valid)
-        n_pad = next((2 * b for b in DEFAULT_BUCKETS if 2 * b >= n_vox),
-                     2 * N_PAD_MAX)
-        sv = SparseVoxels(sv.coords[:n_pad], sv.feats[:n_pad], sv.num_valid)
-        n0 = ((sv.coords[:, 0] == 0) & sv.mask()).sum()
-        return Quantized(sv, xyz_down[:n_pad], n0, pb.spec)
+        with timer.span("pipeline.quantize"):
+            n = pb.xyz.shape[0]
+            ones = torch.ones((n, 1), device=self.device)
+            sv, _, xyz_down = quantize_grid(pb.xyz, ones, pb.valid,
+                                            self.config.voxel_size, 2 * N_PAD_MAX,
+                                            pb.spec, batch_index=pb.batch,
+                                            compact_impl=self.compact_impl)
+            with timer.span("pipeline.quantize.read"):
+                n_vox = int(sv.num_valid)
+            n_pad = next((2 * b for b in DEFAULT_BUCKETS if 2 * b >= n_vox),
+                         2 * N_PAD_MAX)
+            timer.count("pipeline.quantize.rows_valid", n_vox)
+            timer.count("pipeline.quantize.rows_padded", n_pad)
+            sv = SparseVoxels(sv.coords[:n_pad], sv.feats[:n_pad], sv.num_valid)
+            n0 = ((sv.coords[:, 0] == 0) & sv.mask()).sum()
+            return Quantized(sv, xyz_down[:n_pad], n0, pb.spec)
 
     def pyramid(self, q: Quantized) -> CoordinatePyramid:
         """The coordinate pyramid at the bucket ``quantize`` chose from the
@@ -182,6 +195,7 @@ class PairRegistrar:
         """Sample keypoints per fragment and register them. ``keypoint_u``
         (two f32[n_pad] uniform keys) and ``samples`` (RANSAC sample
         indices) replace the draws from ``generator``."""
+        timer.stage("pipeline.keypoints")
         k = self.config.num_rand_keypoints
         n_rows = q.xyz_down.shape[0]
         u0, u1 = keypoint_u if keypoint_u is not None else (None, None)
@@ -201,19 +215,23 @@ class PairRegistrar:
         """(keypoint_u, samples): the draws ``match`` would make from
         ``generator`` on ``q``, in its order (each side's keys, then RANSAC's
         uniforms), made now; given ones are kept."""
-        n_rows = q.xyz_down.shape[0]
-        if keypoint_u is None:
-            keypoint_u = tuple(torch.rand(n_rows, generator=generator, device=self.device)
-                               for _ in range(2))
-        if samples is None:
-            samples = torch.rand(self.sample_shape, generator=generator, device=self.device)
-        return keypoint_u, samples
+        with timer.span("pipeline.draws"):
+            n_rows = q.xyz_down.shape[0]
+            if keypoint_u is None:
+                keypoint_u = tuple(torch.rand(n_rows, generator=generator,
+                                              device=self.device) for _ in range(2))
+            if samples is None:
+                samples = torch.rand(self.sample_shape, generator=generator,
+                                     device=self.device)
+            return keypoint_u, samples
 
     def chain(self, q: Quantized, images: torch.Tensor, T_gt: torch.Tensor,
               cov: torch.Tensor, keypoint_u, samples) -> dict:
         """pyramid → forward → match on a quantized pair, with the draws
         given: what the card replays as one graph per bucket."""
+        timer.stage("pipeline.pyramid")
         pyr = self.pyramid(q)
+        timer.stage("pipeline.forward")
         feats = self.forward(q, pyr, images)
         return self.match(q, feats, T_gt, cov, keypoint_u=keypoint_u, samples=samples)
 

@@ -31,6 +31,7 @@ from imfnet_tpu_torch.train.losses import (contrastive_loss, draw_shapes, draws_
                                            hardest_contrastive_loss, hardest_triplet_loss,
                                            triplet_loss)
 from imfnet_tpu_torch.train.state import TrainState
+from imfnet_tpu_torch.utils import timer
 from imfnet_tpu_torch.utils.graphs import jit
 
 MAP_IMPLS = ("search",) + GRID_MAP_IMPLS
@@ -314,12 +315,17 @@ def make_graphed_train_step(config: Config, map_impl: Optional[str] = None):
     on the CPU it runs eagerly. Given the same draws the result equals
     ``make_train_step``'s; the metrics are the graph's outputs, which the
     next step overwrites (clone what is kept). ``train_step.graphed`` is the
-    ``utils.graphs.Graphed`` (its ``replays``, its graphs' launches)."""
+    ``utils.graphs.Graphed`` (its ``replays``, its graphs' launches). The
+    graph's stages (``utils.timer.stage``) are ``step.forward`` (the
+    forwards and the loss), ``step.backward`` and ``step.sgd``."""
 
     def body(state: TrainState, batch: PairBatch, draws: Sequence[torch.Tensor]):
+        timer.stage("step.forward")
         loss, metrics = make_loss_fn(state.model, config, map_impl)(batch, None, draws)
+        timer.stage("step.backward")
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        timer.stage("step.sgd")
         state.optimizer.step()
         state.optimizer.zero_grad(set_to_none=True)
         return metrics

@@ -55,6 +55,7 @@ from imfnet_tpu_torch.train.state import TrainState, create_train_state
 from imfnet_tpu_torch.train.step import (PairBatch, make_accum_steps,
                                          make_graphed_train_step, make_train_step)
 from imfnet_tpu_torch.train.validate import make_graphed_val_step, make_val_step
+from imfnet_tpu_torch.utils import timer
 from imfnet_tpu_torch.utils.device import resolve_device
 from imfnet_tpu_torch.utils.timer import AverageMeter, Timer
 
@@ -189,7 +190,14 @@ _STAGERS: Dict[torch.device, BatchStager] = {}
 def batch_to_device(batch: PairBatch, device: torch.device) -> PairBatch:
     """The batch's tensors on ``device``: towards a card through the card's
     staging ring (one ``BatchStager`` a card, made at its first move),
-    without blocking the host; elsewhere ``t.to(device)``."""
+    without blocking the host; elsewhere ``t.to(device)``. While tracing
+    (``utils.timer``) it counts the sides' valid and padded rows
+    (``trainer.stage.rows_valid``, ``trainer.stage.rows_padded``) of a
+    batch whose counts are on the host."""
+    if timer.active() and batch.n0.device.type == "cpu":
+        timer.count("trainer.stage.rows_valid", int(batch.n0) + int(batch.n1))
+        timer.count("trainer.stage.rows_padded",
+                    batch.coords0.shape[0] + batch.coords1.shape[0])
     device = torch.device(device)
     if device.type != "cuda":
         return PairBatch(*(None if t is None else t.to(device) for t in batch))

@@ -35,6 +35,12 @@ an eager call: the launches recorded on a capture's stream are tallied for
 it alone (``utils.launches``) and added once per replay. A capture that fails raises;
 nothing falls back to eager.
 
+Stage clocks (``utils.timer.stage_clock``): a capture marks each
+``stage(name)`` it meets, and then the graph's end, with a timing event
+inside the graph; a graph without stages holds no such event. While tracing
+(``utils.timer.active``), a replay is the span ``graphs.replay``, and its
+stage times are read before the graph's next replay.
+
 Threads: a capture runs in ``thread_local`` error mode, so another thread's
 allocations and synchronizing calls (a loader's producer thread running its
 own graphs or eager kernels) neither fail it nor are failed by it. One
@@ -50,7 +56,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
-from imfnet_tpu_torch.utils import launches
+from imfnet_tpu_torch.utils import launches, timer
 
 
 def kernel_counters() -> Tuple[launches.Counter, ...]:
@@ -167,6 +173,7 @@ class _Graph:
         self.out_leaves: List[Optional[torch.Tensor]] = []
         self.out_spec = None
         self.counts: Dict[launches.Counter, int] = {}
+        self.clock: Optional[timer.StageClock] = None
 
     def copy_in(self, leaves) -> None:
         for slab in self.slabs:
@@ -212,11 +219,15 @@ class Graphed:
             stream = torch.cuda.current_stream(tensors[0].device)
             if self._done is not None:     # a replay on another stream has ended
                 stream.wait_event(self._done)
-            entry.copy_in(leaves)
-            entry.graph.replay()
-            launches.add(entry.counts)
-            self.replays += 1
-            out = [t.clone() if self.clone and t is not None else t for t in entry.out_leaves]
+            timer.before_replay(entry.clock)
+            with timer.span("graphs.replay"):
+                entry.copy_in(leaves)
+                entry.graph.replay()
+                launches.add(entry.counts)
+                self.replays += 1
+                out = [t.clone() if self.clone and t is not None else t
+                       for t in entry.out_leaves]
+            timer.replayed(entry.clock)
             self._done = torch.cuda.Event()
             self._done.record(stream)
         return tree_unflatten(out, entry.out_spec)
@@ -235,10 +246,12 @@ class Graphed:
         side.wait_stream(torch.cuda.current_stream())
         # the capture launched nothing: what is counted on its stream (the
         # backward's launches from autograd's thread too) is a replay's
+        name = getattr(self.fn, "__qualname__", type(self.fn).__name__)
         with launches.tallied(side.cuda_stream) as tally, \
-                torch.cuda.graph(entry.graph, stream=side, capture_error_mode="thread_local"):
+                torch.cuda.graph(entry.graph, stream=side, capture_error_mode="thread_local"), \
+                timer.stage_clock(side.cuda_stream, name) as clock:
             out = self.fn(*tree_unflatten(entry.static, spec))
-        entry.counts = tally
+        entry.counts, entry.clock = tally, clock
         torch.cuda.current_stream().wait_stream(side)
         entry.out_leaves, entry.out_spec = tree_flatten(out)
         for t in entry.out_leaves:

@@ -1,4 +1,5 @@
-"""Streaming meters and wall-clock stopwatches (``imfnet_tpu.utils.timer``).
+"""Streaming meters, wall-clock stopwatches (``imfnet_tpu.utils.timer``),
+and the program's tracing: spans, counters and stage clocks.
 
 Covers the reference's timing surface (`lib/timer.py`: per-phase averages in
 train/eval loops, a min-of-runs timer for benchmarks) with one streaming
@@ -6,13 +7,38 @@ statistics class — count/mean/variance/min/max in a single `add` — and a
 stopwatch wrapping it. These are host clocks: a lap around device work is the
 time to enqueue it unless the lap ends in a read or a synchronize.
 ``device_trace`` records a profiler trace of a block of code.
+
+Tracing is live while a ``torch.profiler`` records, or inside a
+``tracing()`` block; otherwise each call below costs one flag test.
+
+- ``span(name)``: a block of host work, named ``<module>.<stage>``, kept in
+  memory as (name, parent, start_ns, end_ns) on the profiler's clock (unix
+  nanoseconds) and, under a profiler, also opened as its
+  ``record_function`` range, so that the trace shows it beside the device's
+  work.
+- ``count(name, n)``: a counter, named ``<module>.<stage>.<counter>`` after
+  where the work happens (``pipeline.quantize.rows_valid``).
+- ``stage(name)``: a stage boundary inside a CUDA graph
+  (``utils.graphs``): a timing event captured into the graph at capture
+  time, tracing or not, that starts stage ``name``; the stage runs to the
+  next boundary or to the graph's end, which gets a timing event of its own
+  in a graph that has stages. Outside a capture it does nothing. While
+  tracing, the host reads a replay's stage times before the graph's next
+  replay, and the last replay's at ``record()``.
+
+``record()`` returns what was recorded so far; ``reset()`` clears it.
 """
 from __future__ import annotations
 
 import contextlib
 import math
 import os
+import threading
 import time
+from typing import Dict, Hashable, Iterator, List, Optional, Tuple
+
+import torch
+import torch.autograd.profiler as _profiler
 
 
 class Meter:
@@ -124,9 +150,8 @@ class AverageMeter(Meter):
         return self.last
 
 
-class MinTimer(Timer):
-    """Stopwatch whose headline number is the fastest lap (benchmarks)."""
-    # `.min` is inherited from Meter
+# the JAX package's min-of-runs timer: every Meter keeps its fastest lap (`.min`)
+MinTimer = Timer
 
 
 @contextlib.contextmanager
@@ -134,9 +159,8 @@ def device_trace(logdir: str):
     """``torch.profiler`` trace of the block (the counterpart of the JAX
     package's ``jax.profiler`` trace): host activity, and the card's where
     there is one, written on exit as one Chrome trace file under
-    ``logdir``. Yields the profiler."""
-    import torch
-
+    ``logdir``. The program's spans (``span``) open inside the block appear
+    in it as ranges of their own name. Yields the profiler."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -144,3 +168,179 @@ def device_trace(logdir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+# -- the program's spans, counters and stage clocks ---------------------------
+
+Span = Tuple[str, Optional[str], int, int]       # (name, parent, start_ns, end_ns)
+
+_NULL = contextlib.nullcontext()
+_lock = threading.Lock()
+_local = threading.local()       # .open: the calling thread's open span names
+_tracing = 0                     # depth of open ``tracing()`` blocks
+_spans: List[Span] = []
+_counters: Dict[str, int] = {}
+_stages: List[Dict] = []
+_capturing: Dict[Hashable, "StageClock"] = {}   # capturing stream → its clock
+_unread: Dict[int, Tuple["StageClock", int]] = {}  # id(clock) → (clock, launch ns)
+
+
+def active() -> bool:
+    """True while a profiler records or a ``tracing()`` block is open."""
+    return bool(_tracing) or _profiler._is_profiler_enabled
+
+
+@contextlib.contextmanager
+def tracing() -> Iterator[None]:
+    """Spans, counters and stage times recorded inside the block, with no
+    profiler running."""
+    global _tracing
+    with _lock:
+        _tracing += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _tracing -= 1
+
+
+class _Span:
+    __slots__ = ("name", "parent", "start", "range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_local, "open", None)
+        if stack is None:
+            stack = _local.open = []
+        self.parent = stack[-1] if stack else None
+        stack.append(self.name)
+        self.range = (torch.profiler.record_function(self.name)
+                      if _profiler._is_profiler_enabled else None)
+        # stamped before the range opens and after it closes: the range's
+        # own stamps fall inside, a few microseconds from these
+        self.start = time.time_ns()
+        if self.range is not None:
+            self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        end = time.time_ns()
+        _local.open.pop()
+        _spans.append((self.name, self.parent, self.start, end))
+        return False
+
+
+def span(name: str):
+    """A context manager: the block as the span ``name`` while tracing is
+    live (``active``), else a shared null context."""
+    if not (_tracing or _profiler._is_profiler_enabled):
+        return _NULL
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """``name`` += n while tracing is live."""
+    if _tracing or _profiler._is_profiler_enabled:
+        with _lock:
+            _counters[name] = _counters.get(name, 0) + int(n)
+
+
+class StageClock:
+    """The stage boundaries captured into one CUDA graph: (stage name,
+    timing event) in the graph's order, the first stage's to the graph's
+    end (name None); empty in a graph without stages."""
+
+    def __init__(self, graph: str):
+        self.graph = graph
+        self.marks: List[Tuple[Optional[str], torch.cuda.Event]] = []
+
+    def mark(self, name: Optional[str]) -> None:
+        ev = torch.cuda.Event(enable_timing=True, external=True)
+        ev.record()
+        self.marks.append((name, ev))
+
+    def read(self) -> Dict[str, float]:
+        """{stage: ms} of the graph's last replay, waiting for its end."""
+        self.marks[-1][1].synchronize()
+        ms: Dict[str, float] = {}
+        for (name, a), (_, b) in zip(self.marks, self.marks[1:]):
+            ms[name] = ms.get(name, 0.0) + a.elapsed_time(b)
+        return ms
+
+
+@contextlib.contextmanager
+def stage_clock(stream: Hashable, graph: str) -> Iterator[StageClock]:
+    """The yielded clock of the CUDA graph ``graph`` captured on ``stream``
+    (its ``cuda_stream`` handle) inside the block: the ``stage`` marks on
+    that stream and, after the first, the block's end."""
+    clock = StageClock(graph)
+    with _lock:
+        _capturing[stream] = clock
+    try:
+        yield clock
+        if clock.marks:
+            clock.mark(None)
+    finally:
+        with _lock:
+            del _capturing[stream]
+
+
+def stage(name: str) -> None:
+    """Starts stage ``name`` of the CUDA graph being captured on the current
+    stream; nothing outside a capture (eagerly, on the CPU)."""
+    if not _capturing:
+        return
+    clock = _capturing.get(torch.cuda.current_stream().cuda_stream)
+    if clock is not None:
+        clock.mark(name)
+
+
+def _resolve(clock: StageClock, at_ns: int) -> None:
+    ms = clock.read()
+    _stages.append({"graph": clock.graph, "at_ns": at_ns, "ms": ms,
+                    "total_ms": sum(ms.values())})
+
+
+def before_replay(clock: StageClock) -> None:
+    """Reads the clock's unread replay, before the next one rewrites it."""
+    if _unread:
+        with _lock:
+            item = _unread.pop(id(clock), None)
+        if item is not None:
+            _resolve(*item)
+
+
+def replayed(clock: StageClock) -> None:
+    """A replay of the clock's graph has been launched: while tracing, its
+    stage times are read later (``before_replay``, ``record``). A graph
+    without stage boundaries is not read."""
+    if clock.marks and (_tracing or _profiler._is_profiler_enabled):
+        with _lock:
+            _unread[id(clock)] = (clock, time.time_ns())
+
+
+def record() -> Dict:
+    """{"spans": [(name, parent, start_ns, end_ns)], "counters": {name: n},
+    "stages": [{"graph", "at_ns" (the replay's launch), "ms": {stage: ms},
+    "total_ms"}] in launch order} recorded so far, the unread replays'
+    stage times read first."""
+    with _lock:
+        unread = list(_unread.values())
+        _unread.clear()
+    for item in unread:
+        _resolve(*item)
+    return {"spans": list(_spans), "counters": dict(_counters),
+            "stages": sorted(_stages, key=lambda s: s["at_ns"])}
+
+
+def reset() -> None:
+    """Forgets every span, counter and stage time recorded so far."""
+    with _lock:
+        _spans.clear()
+        _counters.clear()
+        _stages.clear()
+        _unread.clear()
