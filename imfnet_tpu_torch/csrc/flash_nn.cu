@@ -49,6 +49,26 @@
 // match/nn_kernel.py::nn_plan chooses the instance and the split from the
 // shape; chip_smoke.py sweeps them all (PERF.md has the table).
 //
+// Valid spans. A caller pads its rows to a fixed capacity (eval-kitti's
+// 131 072 a side hold about 67 000 voxels, a prefix), and one CUDA graph
+// replays every pair whatever its counts, so the work is bounded on the
+// device, inside the call's own launches, with no host read:
+//  - the call's words (8 ints the wrapper allocates, cleared by a memset at
+//    the call's start) receive from the pre-pass the span of the valid
+//    queries, [q_lo, q_hi), and of the valid references, [r_lo, r_hi): the
+//    lowest and one past the highest valid row, reduced a warp at a time
+//    into two atomicMax words each (n_pad - lowest, highest + 1; 0: none);
+//  - a block whose query tile lies wholly outside [q_lo, q_hi) writes
+//    (0, +inf) and leaves; the others walk only the reference tiles that
+//    overlap [r_lo, r_hi), split over the cluster's parts as [0, T) was.
+//    Tiles outside hold no valid reference, which could never be chosen,
+//    so no valid query's answer changes; with every row valid the spans
+//    are the whole range and each block walks the tiles it walked before;
+//  - a query that is not valid gets (0, +inf) at the store;
+//  - each walking block adds the query rows x reference rows its tiles
+//    cover to a 64-bit tally in words 4-5, which the host reads only while
+//    it traces (match/nn_kernel.py, utils/timer.py::count_device).
+//
 // D = 3 (the positive search of a training step, ICP's 30 calls a KITTI
 // pair, compute-overlap) is bound by the fold, not the dot: a pair's dot is
 // 3 FFMA, while folding it into a running (d, index) costs an fmaf, a
@@ -103,14 +123,38 @@ constexpr int K_UNROLL = 8;  // k steps unrolled together (even: the operand
                              // registers alternate)
 constexpr int KC = 8;        // the chunk fold's rows of the contraction a stage
                              // holds; D is padded to a multiple of it
+constexpr int WORDS = 8;     // ints of a call's words: the query span's two, the
+                             // reference span's two, the 64-bit tally, two spare
+
+// Row j of the queries (is_ref false) or the references is valid: inside
+// its count and, with a mask, marked in it.
+__device__ __forceinline__ bool row_valid(const uint8_t* mask, int j, int rows) {
+  return j < rows && (mask == nullptr || mask[j] != 0);
+}
+
+// The pre-pass's share of the spans: a warp's valid rows, all of one
+// operand (PRE_NT divides the padding), into the operand's two words with
+// one atomicMax each: pad - the lowest row, and the highest row + 1.
+__device__ __forceinline__ void reduce_span(int* words, bool is_ref, bool ok, int j,
+                                            int pad) {
+  const unsigned lo = __reduce_max_sync(0xffffffffu, ok ? (unsigned)(pad - j) : 0u);
+  const unsigned hi = __reduce_max_sync(0xffffffffu, ok ? (unsigned)(j + 1) : 0u);
+  if ((threadIdx.x & 31) == 0 && hi != 0u) {
+    int* w = words + (is_ref ? 2 : 0);
+    atomicMax(w, (int)lo);
+    atomicMax(w + 1, (int)hi);
+  }
+}
 
 // Pre-pass: thread j transposes row j of q (j < n_pad) or of r into the
-// k-major scratch and writes its squared norm into row D.
+// k-major scratch, writes its squared norm into row D, and adds the row to
+// its operand's valid span.
 template <int D>
 __global__ void __launch_bounds__(PRE_NT)
 nn_transpose_kernel(const float* __restrict__ q, const float* __restrict__ r,
-                    const uint8_t* __restrict__ valid, int n, int m, int n_pad,
-                    int m_pad, float* __restrict__ qt, float* __restrict__ rt) {
+                    const uint8_t* __restrict__ valid, const uint8_t* __restrict__ qvalid,
+                    int n, int m, int n_pad, int m_pad, float* __restrict__ qt,
+                    float* __restrict__ rt, int* __restrict__ words) {
   int j = blockIdx.x * PRE_NT + threadIdx.x;
   const bool is_ref = j >= n_pad;
   if (is_ref) j -= n_pad;
@@ -125,20 +169,20 @@ nn_transpose_kernel(const float* __restrict__ q, const float* __restrict__ r,
     dst[(size_t)c * pad + j] = v;
     s = fmaf(v, v, s);
   }
-  if (is_ref) {
-    const bool ok = j < m && (valid == nullptr || valid[j] != 0);
-    s = ok ? s : INFINITY;
-  }
+  const bool ok = row_valid(is_ref ? valid : qvalid, j, rows);
+  if (is_ref) s = ok ? s : INFINITY;
   dst[(size_t)D * pad + j] = s;
+  reduce_span(words, is_ref, ok, j, pad);
 }
 
 // The same for any width: d components, zero-padded to dp rows, and the
 // squared norm (summed over the d components in order) in row dp.
 __global__ void __launch_bounds__(PRE_NT)
 nn_transpose_any_kernel(const float* __restrict__ q, const float* __restrict__ r,
-                        const uint8_t* __restrict__ valid, int n, int m, int d, int dp,
+                        const uint8_t* __restrict__ valid,
+                        const uint8_t* __restrict__ qvalid, int n, int m, int d, int dp,
                         int n_pad, int m_pad, float* __restrict__ qt,
-                        float* __restrict__ rt) {
+                        float* __restrict__ rt, int* __restrict__ words) {
   int j = blockIdx.x * PRE_NT + threadIdx.x;
   const bool is_ref = j >= n_pad;
   if (is_ref) j -= n_pad;
@@ -152,11 +196,63 @@ nn_transpose_any_kernel(const float* __restrict__ q, const float* __restrict__ r
     dst[(size_t)c * pad + j] = v;
     s = fmaf(v, v, s);
   }
-  if (is_ref) {
-    const bool ok = j < m && (valid == nullptr || valid[j] != 0);
-    s = ok ? s : INFINITY;
-  }
+  const bool ok = row_valid(is_ref ? valid : qvalid, j, rows);
+  if (is_ref) s = ok ? s : INFINITY;
   dst[(size_t)dp * pad + j] = s;
+  reduce_span(words, is_ref, ok, j, pad);
+}
+
+// What one block of a main kernel does, from the pre-pass's spans: whether
+// its query tile [q0, q0 + bq) meets the valid queries, and the reference
+// tiles it walks, [t_begin, t_begin + count): its part of the T tiles that
+// meet the valid references, from tile t_lo, part p taking [t_lo + p*T/split,
+// t_lo + (p+1)*T/split). With every row valid, t_lo = 0 and T is every tile.
+struct Walk {
+  bool live;
+  int t_begin, count;
+};
+
+__device__ __forceinline__ Walk plan_walk(const int* words, int q0, int bq, int br,
+                                          int n_pad, int m_pad, int part, int split) {
+  const int q_lo = n_pad - words[0], q_hi = words[1];
+  const int r_lo = m_pad - words[2], r_hi = words[3];
+  const int t_lo = r_lo / br;
+  const int tiles = r_hi > r_lo ? (r_hi + br - 1) / br - t_lo : 0;
+  Walk w;
+  w.live = q0 < q_hi && q0 + bq > q_lo;
+  w.t_begin = t_lo + (int)((long long)part * tiles / split);
+  w.count = t_lo + (int)((long long)(part + 1) * tiles / split) - w.t_begin;
+  return w;
+}
+
+// A block outside the valid queries: (0, +inf) for its rows, the parts of
+// the cluster taking every split-th row (they all leave, none waits).
+__device__ __forceinline__ void store_none(int q0, int bq, int n, int part, int split,
+                                           int tid, int nt, int* out_i, float* out_d) {
+  for (int row = part + tid * split; row < bq; row += nt * split)
+    if (q0 + row < n) {
+      out_i[q0 + row] = 0;
+      out_d[q0 + row] = INFINITY;
+    }
+}
+
+// The block's walked query rows x reference rows, into the call's tally.
+__device__ __forceinline__ void tally_walk(int* words, const Walk& w, int q0, int bq, int br,
+                                           int n, int m) {
+  if (threadIdx.x != 0 || w.count == 0) return;
+  const long long rows_q = min(q0 + bq, n) - q0;
+  const long long rows_r = min((w.t_begin + w.count) * br, m) - min(w.t_begin * br, m);
+  atomicAdd(reinterpret_cast<unsigned long long*>(words + 4),
+            (unsigned long long)(rows_q * rows_r));
+}
+
+// One query's result: its nearest valid reference, or (0, +inf) for a query
+// that is not valid.
+__device__ __forceinline__ void store_row(const uint8_t* qvalid, int i, int bi, float d,
+                                          int* out_i, float* out_d) {
+  const bool ok = qvalid == nullptr || qvalid[i] != 0;
+  out_i[i] = ok ? bi : 0;
+  out_d[i] = ok ? d : INFINITY;
 }
 
 __device__ __forceinline__ void ld4(float* dst, const float* src) {
@@ -206,6 +302,7 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, int pad,
 template <int D, int TQ, int TR, int GY, int GX>
 __global__ void __launch_bounds__(GY * GX)
 flash_nn_kernel(const float* __restrict__ qt, const float* __restrict__ rt,
+                const uint8_t* __restrict__ qvalid, int* __restrict__ words,
                 int n, int m, int n_pad, int m_pad, int split,
                 int* __restrict__ out_i, float* __restrict__ out_d) {
   using T = NnTile<D, TQ, TR, GY, GX>;
@@ -223,9 +320,13 @@ flash_nn_kernel(const float* __restrict__ qt, const float* __restrict__ rt,
   const int tx = (warp % (GX / 8)) * 8 + lane % 8;
   const int q0 = blockIdx.x * BQ;
   const int part = blockIdx.y;               // rank in the (1, split, 1) cluster
-  const int tiles = (m + BR - 1) / BR;
-  const int t_begin = (int)((long long)part * tiles / split);
-  const int count = (int)((long long)(part + 1) * tiles / split) - t_begin;
+  const Walk w = plan_walk(words, q0, BQ, BR, n_pad, m_pad, part, split);
+  if (!w.live) {
+    store_none(q0, BQ, n, part, split, tid, NT, out_i, out_d);
+    return;
+  }
+  tally_walk(words, w, q0, BQ, BR, n, m);
+  const int t_begin = w.t_begin, count = w.count;
 
   load_tile<ROWS, BQ, NT>(qs, qt + q0, n_pad, tid);
 #pragma unroll
@@ -325,10 +426,9 @@ flash_nn_kernel(const float* __restrict__ qt, const float* __restrict__ rt,
 
   if (split == 1) {
     for (int row = tid; row < BQ; row += NT)  // the rows this thread merged
-      if (q0 + row < n) {
-        out_i[q0 + row] = part_i[row];
-        out_d[q0 + row] = fmaxf(part_d[row] + qs[D * BQ + row], 0.f);
-      }
+      if (q0 + row < n)
+        store_row(qvalid, q0 + row, part_i[row], fmaxf(part_d[row] + qs[D * BQ + row], 0.f),
+                  out_i, out_d);
     return;
   }
   cg::cluster_group cluster = cg::this_cluster();
@@ -344,10 +444,8 @@ flash_nn_kernel(const float* __restrict__ qt, const float* __restrict__ rt,
         bi = i;
       }
     }
-    if (q0 + row < n) {
-      out_i[q0 + row] = bi;
-      out_d[q0 + row] = fmaxf(bd + qs[D * BQ + row], 0.f);
-    }
+    if (q0 + row < n)
+      store_row(qvalid, q0 + row, bi, fmaxf(bd + qs[D * BQ + row], 0.f), out_i, out_d);
   }
   cluster.sync();  // no block leaves while a peer still reads its bests
 }
@@ -380,6 +478,7 @@ struct Nn3Tile {
 template <int TQ, int TR, int GY, int GX>
 __global__ void __launch_bounds__(GY * GX, 2)
 flash_nn3_kernel(const float* __restrict__ qt, const float* __restrict__ rt,
+                 const uint8_t* __restrict__ qvalid, int* __restrict__ words,
                  int n, int m, int n_pad, int m_pad, int split,
                  int* __restrict__ out_i, float* __restrict__ out_d) {
   using T = Nn3Tile<TQ, TR, GY, GX>;
@@ -395,9 +494,14 @@ flash_nn3_kernel(const float* __restrict__ qt, const float* __restrict__ rt,
   const int tx = (warp % (GX / 8)) * 8 + lane % 8;
   const int q0 = blockIdx.x * BQ;
   const int part = blockIdx.y;
-  const int tiles = (m + BR - 1) / BR;
-  const int t_begin = (int)((long long)part * tiles / split);
-  const int count = (int)((long long)(part + 1) * tiles / split) - t_begin;
+  const Walk w = plan_walk(words, q0, BQ, BR, n_pad, m_pad, part, split);
+  if (!w.live) {
+    store_none(q0, BQ, n, part, split, tid, NT, out_i, out_d);
+    return;
+  }
+  tally_walk(words, w, q0, BQ, BR, n, m);
+  // the walk's tiles are absolute: the index re-walk below adds t_begin
+  const int t_begin = w.t_begin, count = w.count;
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -502,10 +606,9 @@ flash_nn3_kernel(const float* __restrict__ qt, const float* __restrict__ rt,
 
   if (split == 1) {
     for (int row = tid; row < BQ; row += NT)
-      if (q0 + row < n) {
-        out_i[q0 + row] = part_i[row];
-        out_d[q0 + row] = fmaxf(part_d[row] + qt[(size_t)3 * n_pad + q0 + row], 0.f);
-      }
+      if (q0 + row < n)
+        store_row(qvalid, q0 + row, part_i[row],
+                  fmaxf(part_d[row] + qt[(size_t)3 * n_pad + q0 + row], 0.f), out_i, out_d);
     return;
   }
   cg::cluster_group cluster = cg::this_cluster();
@@ -521,10 +624,9 @@ flash_nn3_kernel(const float* __restrict__ qt, const float* __restrict__ rt,
         bi = i;
       }
     }
-    if (q0 + row < n) {
-      out_i[q0 + row] = bi;
-      out_d[q0 + row] = fmaxf(bd + qt[(size_t)3 * n_pad + q0 + row], 0.f);
-    }
+    if (q0 + row < n)
+      store_row(qvalid, q0 + row, bi, fmaxf(bd + qt[(size_t)3 * n_pad + q0 + row], 0.f),
+                out_i, out_d);
   }
   cluster.sync();
 }
@@ -551,6 +653,7 @@ struct NnkTile {
 template <int TQ, int TR, int GY, int GX>
 __global__ void __launch_bounds__(GY * GX)
 flash_nnk_kernel(const float* __restrict__ qt, const float* __restrict__ rt,
+                 const uint8_t* __restrict__ qvalid, int* __restrict__ words,
                  int n, int m, int n_pad, int m_pad, int dp, int split,
                  int* __restrict__ out_i, float* __restrict__ out_d) {
   using T = NnkTile<TQ, TR, GY, GX>;
@@ -566,9 +669,13 @@ flash_nnk_kernel(const float* __restrict__ qt, const float* __restrict__ rt,
   const int tx = (warp % (GX / 8)) * 8 + lane % 8;
   const int q0 = blockIdx.x * BQ;
   const int part = blockIdx.y;
-  const int tiles = (m + BR - 1) / BR;
-  const int t_begin = (int)((long long)part * tiles / split);
-  const int count = (int)((long long)(part + 1) * tiles / split) - t_begin;
+  const Walk w = plan_walk(words, q0, BQ, BR, n_pad, m_pad, part, split);
+  if (!w.live) {
+    store_none(q0, BQ, n, part, split, tid, NT, out_i, out_d);
+    return;
+  }
+  tally_walk(words, w, q0, BQ, BR, n, m);
+  const int t_begin = w.t_begin, count = w.count;
   const int chunks = dp / KC;
   const int steps = count * chunks;  // step s: chunk s % chunks of tile s / chunks
 
@@ -670,10 +777,9 @@ flash_nnk_kernel(const float* __restrict__ qt, const float* __restrict__ rt,
 
   if (split == 1) {
     for (int row = tid; row < BQ; row += NT)
-      if (q0 + row < n) {
-        out_i[q0 + row] = part_i[row];
-        out_d[q0 + row] = fmaxf(part_d[row] + qnorm[row], 0.f);
-      }
+      if (q0 + row < n)
+        store_row(qvalid, q0 + row, part_i[row], fmaxf(part_d[row] + qnorm[row], 0.f), out_i,
+                  out_d);
     return;
   }
   cg::cluster_group cluster = cg::this_cluster();
@@ -689,10 +795,8 @@ flash_nnk_kernel(const float* __restrict__ qt, const float* __restrict__ rt,
         bi = i;
       }
     }
-    if (q0 + row < n) {
-      out_i[q0 + row] = bi;
-      out_d[q0 + row] = fmaxf(bd + qnorm[row], 0.f);
-    }
+    if (q0 + row < n)
+      store_row(qvalid, q0 + row, bi, fmaxf(bd + qnorm[row], 0.f), out_i, out_d);
   }
   cluster.sync();
 }
@@ -716,8 +820,9 @@ cudaError_t launch_cluster(Kernel kernel, size_t smem, int bq, int threads, int 
 }
 
 template <int TQ, int TR, int GY, int GX>
-cudaError_t launch_nn3(const float* qt, const float* rt, int n, int m, int n_pad, int m_pad,
-                       int split, int* out_i, float* out_d, cudaStream_t stream) {
+cudaError_t launch_nn3(const float* qt, const float* rt, const uint8_t* qvalid, int* words,
+                       int n, int m, int n_pad, int m_pad, int split, int* out_i, float* out_d,
+                       cudaStream_t stream) {
   using T = Nn3Tile<TQ, TR, GY, GX>;
   auto kernel = flash_nn3_kernel<TQ, TR, GY, GX>;
   static bool smem_allowed = false;  // per instance
@@ -727,13 +832,13 @@ cudaError_t launch_nn3(const float* qt, const float* rt, int n, int m, int n_pad
     if (e != cudaSuccess) return e;
     smem_allowed = true;
   }
-  return launch_cluster(kernel, T::smem_bytes(), T::BQ, T::NT, n, split, stream, qt, rt, n, m,
-                        n_pad, m_pad, split, out_i, out_d);
+  return launch_cluster(kernel, T::smem_bytes(), T::BQ, T::NT, n, split, stream, qt, rt,
+                        qvalid, words, n, m, n_pad, m_pad, split, out_i, out_d);
 }
 
 template <int D, int TQ, int TR, int GY, int GX>
-cudaError_t launch_nn(const float* qt, const float* rt, int n, int m, int n_pad,
-                      int m_pad, int split, int* out_i, float* out_d,
+cudaError_t launch_nn(const float* qt, const float* rt, const uint8_t* qvalid, int* words,
+                      int n, int m, int n_pad, int m_pad, int split, int* out_i, float* out_d,
                       cudaStream_t stream) {
   using T = NnTile<D, TQ, TR, GY, GX>;
   auto kernel = flash_nn_kernel<D, TQ, TR, GY, GX>;
@@ -744,13 +849,14 @@ cudaError_t launch_nn(const float* qt, const float* rt, int n, int m, int n_pad,
     if (e != cudaSuccess) return e;
     smem_allowed = true;
   }
-  return launch_cluster(kernel, T::smem_bytes(), T::BQ, T::NT, n, split, stream, qt, rt, n, m,
-                        n_pad, m_pad, split, out_i, out_d);
+  return launch_cluster(kernel, T::smem_bytes(), T::BQ, T::NT, n, split, stream, qt, rt,
+                        qvalid, words, n, m, n_pad, m_pad, split, out_i, out_d);
 }
 
 template <int TQ, int TR, int GY, int GX>
-cudaError_t launch_nnk(const float* qt, const float* rt, int n, int m, int n_pad, int m_pad,
-                       int dp, int split, int* out_i, float* out_d, cudaStream_t stream) {
+cudaError_t launch_nnk(const float* qt, const float* rt, const uint8_t* qvalid, int* words,
+                       int n, int m, int n_pad, int m_pad, int dp, int split, int* out_i,
+                       float* out_d, cudaStream_t stream) {
   using T = NnkTile<TQ, TR, GY, GX>;
   auto kernel = flash_nnk_kernel<TQ, TR, GY, GX>;
   static bool smem_allowed = false;  // per instance
@@ -760,26 +866,27 @@ cudaError_t launch_nnk(const float* qt, const float* rt, int n, int m, int n_pad
     if (e != cudaSuccess) return e;
     smem_allowed = true;
   }
-  return launch_cluster(kernel, T::smem_bytes(), T::BQ, T::NT, n, split, stream, qt, rt, n, m,
-                        n_pad, m_pad, dp, split, out_i, out_d);
+  return launch_cluster(kernel, T::smem_bytes(), T::BQ, T::NT, n, split, stream, qt, rt,
+                        qvalid, words, n, m, n_pad, m_pad, dp, split, out_i, out_d);
 }
 
 // the chunk fold (fold 2) at any width d >= 1, padded to dp, a multiple of KC
 cudaError_t launch_any(int d, int bq, int br, int threads, const float* q, const float* r,
-                       const uint8_t* valid, float* scratch, int n, int m, int split,
-                       int* out_i, float* out_d, cudaStream_t stream) {
+                       const uint8_t* valid, const uint8_t* qvalid, float* scratch,
+                       int* words, int n, int m, int split, int* out_i, float* out_d,
+                       cudaStream_t stream) {
   const int dp = (d + KC - 1) / KC * KC;
   const int n_pad = (n + PAD - 1) / PAD * PAD, m_pad = (m + PAD - 1) / PAD * PAD;
   float* qt = scratch;
   float* rt = scratch + (size_t)(dp + 1) * n_pad;
   nn_transpose_any_kernel<<<(n_pad + m_pad) / PRE_NT, PRE_NT, 0, stream>>>(
-      q, r, valid, n, m, d, dp, n_pad, m_pad, qt, rt);
+      q, r, valid, qvalid, n, m, d, dp, n_pad, m_pad, qt, rt, words);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-#define NNK_INSTANCE(TQ, TR, GY, GX)                                                  \
-  if (bq == GY * TQ && br == GX * TR && threads == GY * GX)                           \
-    return launch_nnk<TQ, TR, GY, GX>(qt, rt, n, m, n_pad, m_pad, dp, split, out_i, out_d, \
-                                      stream);
+#define NNK_INSTANCE(TQ, TR, GY, GX)                                                   \
+  if (bq == GY * TQ && br == GX * TR && threads == GY * GX)                            \
+    return launch_nnk<TQ, TR, GY, GX>(qt, rt, qvalid, words, n, m, n_pad, m_pad, dp, split, \
+                                      out_i, out_d, stream);
   // keep in step with NN_CHUNK_TILES in match/nn_kernel.py
   NNK_INSTANCE(8, 8, 8, 16)   // 64 x 128, 128 threads: the plan's
   NNK_INSTANCE(8, 8, 16, 16)  // 128 x 128, 256 threads
@@ -789,20 +896,21 @@ cudaError_t launch_any(int d, int bq, int br, int threads, const float* q, const
 
 template <int D>
 cudaError_t launch_d(int bq, int br, int threads, int fold, const float* q, const float* r,
-                     const uint8_t* valid, float* scratch, int n, int m, int split,
-                     int* out_i, float* out_d, cudaStream_t stream) {
+                     const uint8_t* valid, const uint8_t* qvalid, float* scratch, int* words,
+                     int n, int m, int split, int* out_i, float* out_d, cudaStream_t stream) {
   const int n_pad = (n + PAD - 1) / PAD * PAD, m_pad = (m + PAD - 1) / PAD * PAD;
   float* qt = scratch;
   float* rt = scratch + (size_t)(D + 1) * n_pad;
   nn_transpose_kernel<D><<<(n_pad + m_pad) / PRE_NT, PRE_NT, 0, stream>>>(
-      q, r, valid, n, m, n_pad, m_pad, qt, rt);
+      q, r, valid, qvalid, n, m, n_pad, m_pad, qt, rt, words);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if constexpr (D == 3) {  // the min fold
     if (fold != 1) return cudaErrorInvalidValue;
-#define NN3_INSTANCE(TQ, TR, GY, GX)                                              \
-  if (bq == GY * TQ && br == GX * TR && threads == GY * GX)                       \
-    return launch_nn3<TQ, TR, GY, GX>(qt, rt, n, m, n_pad, m_pad, split, out_i, out_d, stream);
+#define NN3_INSTANCE(TQ, TR, GY, GX)                                                \
+  if (bq == GY * TQ && br == GX * TR && threads == GY * GX)                         \
+    return launch_nn3<TQ, TR, GY, GX>(qt, rt, qvalid, words, n, m, n_pad, m_pad, split, \
+                                      out_i, out_d, stream);
     // keep in step with NN_MIN_GEOMETRY in match/nn_kernel.py
     NN3_INSTANCE(8, 8, 8, 16)    // 64 x 128, 128 threads
     NN3_INSTANCE(8, 8, 16, 16)   // 128 x 128, 256 threads
@@ -812,10 +920,10 @@ cudaError_t launch_d(int bq, int br, int threads, int fold, const float* q, cons
 #undef NN3_INSTANCE
   } else {  // the (d, index) fold
     if (fold != 0) return cudaErrorInvalidValue;
-#define NN_INSTANCE(TQ, TR, GY, GX)                                              \
-  if (bq == GY * TQ && br == GX * TR && threads == GY * GX)                      \
-    return launch_nn<D, TQ, TR, GY, GX>(qt, rt, n, m, n_pad, m_pad, split, out_i, \
-                                        out_d, stream);
+#define NN_INSTANCE(TQ, TR, GY, GX)                                                   \
+  if (bq == GY * TQ && br == GX * TR && threads == GY * GX)                           \
+    return launch_nn<D, TQ, TR, GY, GX>(qt, rt, qvalid, words, n, m, n_pad, m_pad, split, \
+                                        out_i, out_d, stream);
     // keep in step with NN_TILES in match/nn_kernel.py
     NN_INSTANCE(8, 8, 8, 16)    // 64 x 128, 128 threads: the plan's
     NN_INSTANCE(8, 8, 16, 16)   // 128 x 128, 256 threads
@@ -829,37 +937,46 @@ cudaError_t launch_d(int bq, int br, int threads, int fold, const float* q, cons
 
 }  // namespace
 
-// q f32 [n, d], r f32 [m, d], valid uint8 [m] or null (all valid), all
-// contiguous; out_i int32 [n], out_d f32 [n], n > 0, d >= 1. Fold 0, the
-// (d, index) fold of flash_nn_kernel, serves d = 32; fold 1, the min fold of
-// flash_nn3_kernel, d = 3; fold 2, the chunk fold of flash_nnk_kernel, any d.
-// scratch: (w + 1) * (n padded to 128 + m padded to 128) floats, 16-byte
-// aligned, where w is d (folds 0 and 1) or d padded to a multiple of 8
-// (fold 2). bq x br is the block's tile of queries x references and threads
-// its size (one of the instances of launch_d), split the blocks of a cluster
-// that share a query tile's references (1..8). Launches the pre-pass and the main kernel on `stream` and returns a
-// CUDA error code (cudaErrorInvalidValue for a combination with no kernel).
-extern "C" int flash_nn(const void* q, const void* r, const void* valid,
-                        void* scratch, void* out_i, void* out_d, int n, int m,
+// q f32 [n, d], r f32 [m, d], valid uint8 [m] or null (every reference
+// valid), qvalid uint8 [n] or null (every query valid), all contiguous;
+// out_i int32 [n], out_d f32 [n], n > 0, d >= 1. A query that is not valid
+// gets (0, +inf). Fold 0, the (d, index) fold of flash_nn_kernel, serves
+// d = 32; fold 1, the min fold of flash_nn3_kernel, d = 3; fold 2, the chunk
+// fold of flash_nnk_kernel, any d. scratch: (w + 1) * (n padded to 128 + m
+// padded to 128) floats, 16-byte aligned, where w is d (folds 0 and 1) or d
+// padded to a multiple of 8 (fold 2). words: 8 ints, 8-byte aligned, which
+// the call clears and then holds the valid spans and, in words 4-5, the
+// uint64 tally of the query x reference rows walked. bq x br is the block's
+// tile of queries x references and threads its size (one of the instances of
+// launch_d), split the blocks of a cluster that share a query tile's
+// references (1..8). Clears the words, launches the pre-pass and the main
+// kernel on `stream` and returns a CUDA error code (cudaErrorInvalidValue
+// for a combination with no kernel).
+extern "C" int flash_nn(const void* q, const void* r, const void* valid, const void* qvalid,
+                        void* scratch, void* words, void* out_i, void* out_d, int n, int m,
                         int d, int bq, int br, int threads, int split, int fold,
                         void* stream) {
   if (n <= 0 || m < 0 || d < 1 || split < 1 || split > MAX_SPLIT ||
-      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(words) % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
   const float* rf = static_cast<const float*>(r);
   const uint8_t* vf = static_cast<const uint8_t*>(valid);
+  const uint8_t* qv = static_cast<const uint8_t*>(qvalid);
   float* sf = static_cast<float*>(scratch);
+  int* wf = static_cast<int*>(words);
   int* oi = static_cast<int*>(out_i);
   float* od = static_cast<float*>(out_d);
-  cudaError_t e;
+  cudaError_t e = cudaMemsetAsync(wf, 0, WORDS * sizeof(int), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
   if (fold == 2) {
-    e = launch_any(d, bq, br, threads, qf, rf, vf, sf, n, m, split, oi, od, s);
+    e = launch_any(d, bq, br, threads, qf, rf, vf, qv, sf, wf, n, m, split, oi, od, s);
   } else if (d == 32) {
-    e = launch_d<32>(bq, br, threads, fold, qf, rf, vf, sf, n, m, split, oi, od, s);
+    e = launch_d<32>(bq, br, threads, fold, qf, rf, vf, qv, sf, wf, n, m, split, oi, od, s);
   } else if (d == 3) {
-    e = launch_d<3>(bq, br, threads, fold, qf, rf, vf, sf, n, m, split, oi, od, s);
+    e = launch_d<3>(bq, br, threads, fold, qf, rf, vf, qv, sf, wf, n, m, split, oi, od, s);
   } else {
     e = cudaErrorInvalidValue;
   }

@@ -15,7 +15,7 @@ import torch
 
 from imfnet_tpu_torch.match.metrics import (apply_transform, inlier_ratio, inverse,
                                             registration_error, transform_error)
-from imfnet_tpu_torch.match.nn import nn_auto
+from imfnet_tpu_torch.match.nn import nn_auto, queries_valid
 from imfnet_tpu_torch.match.ransac import ransac_registration, sample_shape
 from imfnet_tpu_torch.utils import timer
 from imfnet_tpu_torch.utils.graphs import jit
@@ -67,8 +67,14 @@ def make_keypoint_registration(*, voxel_size: float = 0.025,
     def register_kp(kp0, kd0, ok0, kp1, kd1, ok1, T_gt, covariance, *,
                     generator=None, samples=None, swap: bool = False):
         timer.stage("registration.nn")
-        nn01 = nn_auto(kd0, kd1, ok1)[0].long()
-        nn10 = nn_auto(kd1, kd0, ok0)[0].long()
+        # each direction searches its valid keypoints alone (the others get
+        # index 0, which everything below masks): kernel B walks only the
+        # valid spans. The mask goes in by queries_valid, so that the call
+        # keeps nn_auto's (queries, refs, ref_valid) form for a wrapper of it.
+        with queries_valid(ok0):
+            nn01 = nn_auto(kd0, kd1, ok1)[0].long()
+        with queries_valid(ok1):
+            nn10 = nn_auto(kd1, kd0, ok0)[0].long()
         timer.stage("registration.ransac")
         kw = dict(ransac_n=ransac_n, num_hypotheses=num_hypotheses,
                   hypo_block=hypo_block, generator=generator, samples=samples)

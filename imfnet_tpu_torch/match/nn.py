@@ -2,15 +2,23 @@
 
 ``nn_auto`` is the one entry: kernel B (``match.nn_kernel.flash_nn``) for
 CUDA tensors, in the tile and cluster split that ``match.nn_kernel.nn_plan``
-gives the call's shape, its plain blocked version for CPU tensors.
+gives the call's shape, its plain blocked version for CPU tensors. A query
+outside ``query_valid`` gets (0, +inf) and costs the kernel no work.
+``queries_valid(mask)`` gives that mask to the calls inside a block that
+pass none, for a caller whose call goes through a wrapper that passes on
+(queries, refs, ref_valid) alone.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import threading
+from typing import Iterator, Optional, Tuple
 
 import torch
 
 from imfnet_tpu_torch.match.nn_kernel import flash_nn, nn_plain
+
+_scope = threading.local()      # .mask: the innermost queries_valid block's
 
 
 def blocked_nn(queries, refs, ref_valid=None, *, block: int = 4096,
@@ -21,12 +29,30 @@ def blocked_nn(queries, refs, ref_valid=None, *, block: int = 4096,
     return (idx, d2) if with_dist else idx
 
 
+@contextlib.contextmanager
+def queries_valid(mask: Optional[torch.Tensor]) -> Iterator[None]:
+    """``nn_auto``'s ``query_valid`` inside the block, where a call gives
+    none (this thread's calls)."""
+    outer = getattr(_scope, "mask", None)
+    _scope.mask = mask
+    try:
+        yield
+    finally:
+        _scope.mask = outer
+
+
 def nn_auto(queries: torch.Tensor, refs: torch.Tensor,
-            ref_valid: Optional[torch.Tensor] = None
+            ref_valid: Optional[torch.Tensor] = None,
+            query_valid: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(idx int32[N], d² f32[N]) nearest valid reference per query."""
+    """(idx int32[N], d² f32[N]) nearest valid reference per query; (0,
+    +inf) for a query outside ``query_valid`` (bool[N]; without it, the
+    enclosing ``queries_valid`` block's mask, else every query)."""
+    if query_valid is None:
+        query_valid = getattr(_scope, "mask", None)
     return flash_nn(queries.float().contiguous(), refs.float().contiguous(),
-                    None if ref_valid is None else ref_valid.contiguous())
+                    None if ref_valid is None else ref_valid.contiguous(),
+                    None if query_valid is None else query_valid.contiguous())
 
 
 def find_nn(f0, f1, valid1=None):

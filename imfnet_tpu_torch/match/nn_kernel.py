@@ -6,6 +6,21 @@ For each query, the nearest valid reference and the squared distance
 to the lowest index, and with no valid reference the result is (0, +inf).
 Replaces ``imfnet_tpu/match/pallas_nn.py::nn_pallas``.
 
+Masks: ``ref_valid`` (bool[M]) marks the references that may be chosen and
+``query_valid`` (bool[N]) the queries that are searched; a query that is not
+valid gets (0, +inf), the "no valid reference" result, whatever it holds.
+Without a mask every row is valid. The kernel bounds its work by the masks
+on the card, with no host read, so that one CUDA graph serves any counts:
+its pre-pass reduces the span of the valid queries, [q_lo, q_hi), and of the
+valid references, [r_lo, r_hi) (lowest and one past the highest valid row),
+a block whose query tile misses [q_lo, q_hi) only stores, and the others
+walk only the reference tiles that meet [r_lo, r_hi) (``NNPlan.part_ranges``
+with the span). Padded rows at the end of a fixed capacity, as eval-kitti's
+131 072 a side, cost no arithmetic; with every row valid the walk is the
+whole one. Each call also tallies on the card the query × reference rows its
+walked tiles cover, read only while tracing: the counters
+``nn.rows_walked`` and ``nn.rows_full`` (N × M), ``utils.timer.count_device``.
+
 The kernel gives a block of ``threads`` a ``bq × br`` tile of queries ×
 references, each thread an 8 × 8 (or 4-wide) micro-tile of f32 dots in
 registers, streams the reference tiles through a ``cp.async`` ring, and
@@ -28,7 +43,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from imfnet_tpu_torch.utils import cuda_build, launches
+from imfnet_tpu_torch.utils import cuda_build, launches, timer
 
 KERNEL_DIMS = (3, 32)     # the widths with a fold of their own; any other D >= 1
                           # takes the chunk fold
@@ -41,6 +56,7 @@ MAX_SPLIT = 8             # portable thread-block cluster size
 NN_STAGES = 3             # cp.async ring depth of the kernel
 SCRATCH_PAD = 128         # rows of the kernel's k-major scratch are padded to this
 SMEM_LIMIT = 227 * 1024   # the H100's shared memory per block (opt-in)
+WORDS = 8                 # ints of a call's words: the spans, the walked rows' tally
 # (bq, br, threads) of the (d, index) fold's instances in csrc/flash_nn.cu
 # (D = 32): 128 threads with 8 x 8 dots each, or 256 threads with 8 x 8,
 # 8 x 4, 4 x 8 or 4 x 4
@@ -78,13 +94,18 @@ class NNPlan(NamedTuple):
         """[start, stop) of the queries of each query tile."""
         return [(s, min(s + self.bq, n)) for s in range(0, n, self.bq)]
 
-    def part_ranges(self, m: int) -> List[Tuple[int, int]]:
-        """[start, stop) of the references of each part: part p walks the
-        reference tiles [p·T/split, (p+1)·T/split) of the T tiles, as the
-        kernel does. A part may be empty."""
-        tiles = -(-m // self.br)
-        return [(min(p * tiles // self.split * self.br, m),
-                 min((p + 1) * tiles // self.split * self.br, m))
+    def part_ranges(self, m: int, span: Optional[Tuple[int, int]] = None
+                    ) -> List[Tuple[int, int]]:
+        """[start, stop) of the references of each part, as the kernel walks
+        them: the T reference tiles that meet ``span``, the valid
+        references' [r_lo, r_hi) (every tile without one, none if it is
+        empty), from tile t_lo = r_lo // br, part p taking tiles
+        [t_lo + p·T/split, t_lo + (p+1)·T/split). A part may be empty."""
+        lo, hi = (0, m) if span is None else span
+        t_lo = lo // self.br
+        tiles = -(-hi // self.br) - t_lo if hi > lo else 0
+        return [(min((t_lo + p * tiles // self.split) * self.br, m),
+                 min((t_lo + (p + 1) * tiles // self.split) * self.br, m))
                 for p in range(self.split)]
 
 
@@ -141,11 +162,13 @@ def nn_plan(n: int, m: int, d: int) -> NNPlan:
 
 
 def nn_plain(queries: torch.Tensor, refs: torch.Tensor,
-             ref_valid: Optional[torch.Tensor] = None, *,
+             ref_valid: Optional[torch.Tensor] = None,
+             query_valid: Optional[torch.Tensor] = None, *,
              block: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version, the ``imfnet_tpu.match.nn.blocked_nn`` formula: per
     block of references, d² = |q|² + |r|² − 2 q·r, argmin within the block,
-    strict ``<`` across blocks. Returns (idx int32[N], d2 f32[N])."""
+    strict ``<`` across blocks; (0, +inf) for a query that is not valid.
+    Returns (idx int32[N], d2 f32[N])."""
     q = queries.float()
     r = refs.float()
     n, m = q.shape[0], r.shape[0]
@@ -162,46 +185,57 @@ def nn_plain(queries: torch.Tensor, refs: torch.Tensor,
         better = loc_d < best_d
         best_d = torch.where(better, loc_d, best_d)
         best_i = torch.where(better, (loc + off).to(torch.int32), best_i)
+    if query_valid is not None:
+        best_i = torch.where(query_valid, best_i, torch.zeros_like(best_i))
+        best_d = torch.where(query_valid, best_d, torch.full_like(best_d, float("inf")))
     return best_i, best_d.clamp_min(0.0)
 
 
-def _check(q: torch.Tensor, r: torch.Tensor, valid: Optional[torch.Tensor]) -> None:
+def _check(q: torch.Tensor, r: torch.Tensor, valid: Optional[torch.Tensor],
+           query_valid: Optional[torch.Tensor]) -> None:
     if q.dim() != 2 or r.dim() != 2 or q.shape[1] != r.shape[1]:
         raise ValueError(f"flash_nn: want q[N,D], r[M,D]; got "
                          f"{tuple(q.shape)}, {tuple(r.shape)}")
     if q.dtype != torch.float32 or r.dtype != torch.float32:
         raise TypeError(f"flash_nn: q and r must be float32; got {q.dtype}, {r.dtype}")
-    if valid is not None and (valid.dtype != torch.bool or valid.shape != (r.shape[0],)):
-        raise ValueError("flash_nn: ref_valid must be bool[M]")
-    devices = {q.device, r.device} | ({valid.device} if valid is not None else set())
-    if len(devices) != 1:
-        raise ValueError("flash_nn: q, r and ref_valid must share a device")
-    for t in (q, r, valid):
-        if t is not None and not t.is_contiguous():
+    for mask, rows, name in ((valid, r.shape[0], "ref_valid must be bool[M]"),
+                             (query_valid, q.shape[0], "query_valid must be bool[N]")):
+        if mask is not None and (mask.dtype != torch.bool or mask.shape != (rows,)):
+            raise ValueError(f"flash_nn: {name}")
+    masks = [t for t in (valid, query_valid) if t is not None]
+    if len({q.device, r.device} | {t.device for t in masks}) != 1:
+        raise ValueError("flash_nn: q, r and the masks must share a device")
+    for t in (q, r, *masks):
+        if not t.is_contiguous():
             raise ValueError("flash_nn: inputs must be contiguous")
 
 
 def flash_nn(queries: torch.Tensor, refs: torch.Tensor,
-             ref_valid: Optional[torch.Tensor] = None
+             ref_valid: Optional[torch.Tensor] = None,
+             query_valid: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(idx int32[N], d2 f32[N]). CUDA tensors launch kernel B in the plan
     ``nn_plan`` gives the shape (any D >= 1; the launch is counted in
     ``flash_nn.launches``); CPU tensors run the plain version."""
-    _check(queries, refs, ref_valid)
+    _check(queries, refs, ref_valid, query_valid)
     if queries.device.type == "cpu":
-        return nn_plain(queries, refs, ref_valid)
+        return nn_plain(queries, refs, ref_valid, query_valid)
     return run_plan(queries, refs, ref_valid,
-                    nn_plan(queries.shape[0], refs.shape[0], queries.shape[1]))
+                    nn_plan(queries.shape[0], refs.shape[0], queries.shape[1]),
+                    query_valid=query_valid)
 
 
 def run_plan(queries: torch.Tensor, refs: torch.Tensor,
-             ref_valid: Optional[torch.Tensor], plan: NNPlan
+             ref_valid: Optional[torch.Tensor], plan: NNPlan, *,
+             query_valid: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel B on CUDA tensors in the given plan, counted in
-    ``flash_nn.launches``. A plan the kernel has no instance for raises. The
-    port calls it through ``flash_nn``; ``chip_smoke.py``'s sweep and the
-    card tests call it with plans of their own."""
-    _check(queries, refs, ref_valid)
+    ``flash_nn.launches``; the walked rows' tally goes to the counters
+    ``nn.rows_walked`` and ``nn.rows_full`` (``utils.timer.count_device``).
+    A plan the kernel has no instance for raises. The port calls it through
+    ``flash_nn``; ``chip_smoke.py``'s sweep and the card tests call it with
+    plans of their own."""
+    _check(queries, refs, ref_valid, query_valid)
     if queries.device.type != "cuda":
         raise ValueError(f"flash_nn: unsupported device {queries.device}; kernel B "
                          f"runs on CUDA tensors")
@@ -219,15 +253,19 @@ def run_plan(queries: torch.Tensor, refs: torch.Tensor,
     rows = sum(-(-k // SCRATCH_PAD) * SCRATCH_PAD for k in (n, m))
     scratch = torch.empty(((padded_width(d, plan.fold) + 1) * rows,), dtype=torch.float32,
                           device=queries.device)
+    words = torch.empty((WORDS,), dtype=torch.int32, device=queries.device)
     lib = _library()
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_nn(
             queries.data_ptr(), refs.data_ptr(),
             None if ref_valid is None else ref_valid.data_ptr(),
-            scratch.data_ptr(), out_i.data_ptr(), out_d.data_ptr(), n, m, d,
+            None if query_valid is None else query_valid.data_ptr(),
+            scratch.data_ptr(), words.data_ptr(), out_i.data_ptr(), out_d.data_ptr(), n, m, d,
             plan.bq, plan.br, plan.threads, plan.split, FOLDS.index(plan.fold), stream)
-    cuda_build.check(rc, "flash_nn")
+        cuda_build.check(rc, "flash_nn")
+        timer.count_device({"nn.rows_walked": words[4:6].view(torch.int64),
+                            "nn.rows_full": n * m})
     launches.count(flash_nn)
     return out_i, out_d
 
@@ -238,5 +276,5 @@ flash_nn.launches = 0
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("flash_nn")
     lib.flash_nn.restype = ctypes.c_int
-    lib.flash_nn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.flash_nn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     return lib

@@ -37,9 +37,11 @@ nothing falls back to eager.
 
 Stage clocks (``utils.timer.stage_clock``): a capture marks each
 ``stage(name)`` it meets, and then the graph's end, with a timing event
-inside the graph; a graph without stages holds no such event. While tracing
-(``utils.timer.active``), a replay is the span ``graphs.replay``, and its
-stage times are read before the graph's next replay.
+inside the graph; a graph without stages holds no such event. The device
+counters of its launches (``utils.timer.count_device``: kernel B's walked
+rows) are kept with them. While tracing (``utils.timer.active``), a replay
+is the span ``graphs.replay``, and its stage times and device counters are
+read before the graph's next replay.
 
 Threads: a capture runs in ``thread_local`` error mode, so another thread's
 allocations and synchronizing calls (a loader's producer thread running its

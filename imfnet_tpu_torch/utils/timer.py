@@ -18,6 +18,11 @@ Tracing is live while a ``torch.profiler`` records, or inside a
   work.
 - ``count(name, n)``: a counter, named ``<module>.<stage>.<counter>`` after
   where the work happens (``pipeline.quantize.rows_valid``).
+- ``count_device(counts)``: counters of one launch whose values the launch
+  itself writes on the card (kernel B's walked rows, ``nn.rows_walked``):
+  read once the work is done, never while tracing is off. Inside a capture
+  the graph keeps them and each traced replay adds them, read with its
+  stage times.
 - ``stage(name)``: a stage boundary inside a CUDA graph
   (``utils.graphs``): a timing event captured into the graph at capture
   time, tracing or not, that starts stage ``name``; the stage runs to the
@@ -35,7 +40,7 @@ import math
 import os
 import threading
 import time
-from typing import Dict, Hashable, Iterator, List, Optional, Tuple
+from typing import Dict, Hashable, Iterator, List, Optional, Tuple, Union
 
 import torch
 import torch.autograd.profiler as _profiler
@@ -183,6 +188,8 @@ _counters: Dict[str, int] = {}
 _stages: List[Dict] = []
 _capturing: Dict[Hashable, "StageClock"] = {}   # capturing stream → its clock
 _unread: Dict[int, Tuple["StageClock", int]] = {}  # id(clock) → (clock, launch ns)
+_pending: List[Tuple[str, torch.Tensor]] = []   # eager device counters, read at record()
+Counts = Dict[str, Union[int, torch.Tensor]]
 
 
 def active() -> bool:
@@ -249,14 +256,23 @@ def count(name: str, n: int = 1) -> None:
             _counters[name] = _counters.get(name, 0) + int(n)
 
 
+def _add(counts: Counts) -> None:
+    """Adds ``counts`` to the counters, device values read (the caller
+    holds the lock, and the work that writes them is done)."""
+    for name, v in counts.items():
+        _counters[name] = _counters.get(name, 0) + int(v)
+
+
 class StageClock:
     """The stage boundaries captured into one CUDA graph: (stage name,
     timing event) in the graph's order, the first stage's to the graph's
-    end (name None); empty in a graph without stages."""
+    end (name None); empty in a graph without stages. ``counts``: the
+    graph's device counters (``count_device``), one dict a launch."""
 
     def __init__(self, graph: str):
         self.graph = graph
         self.marks: List[Tuple[Optional[str], torch.cuda.Event]] = []
+        self.counts: List[Counts] = []
 
     def mark(self, name: Optional[str]) -> None:
         ev = torch.cuda.Event(enable_timing=True, external=True)
@@ -264,7 +280,11 @@ class StageClock:
         self.marks.append((name, ev))
 
     def read(self) -> Dict[str, float]:
-        """{stage: ms} of the graph's last replay, waiting for its end."""
+        """{stage: ms} of the graph's last replay, waiting for its end (a
+        graph without stages: for the card)."""
+        if not self.marks:
+            torch.cuda.synchronize()
+            return {}
         self.marks[-1][1].synchronize()
         ms: Dict[str, float] = {}
         for (name, a), (_, b) in zip(self.marks, self.marks[1:]):
@@ -299,10 +319,34 @@ def stage(name: str) -> None:
         clock.mark(name)
 
 
+def count_device(counts: Counts) -> None:
+    """Counters of the launch just made: an int is added as given, a
+    one-element integer tensor as the launch leaves it on the card. Inside
+    a capture of ``utils.graphs`` the graph's clock keeps them for every
+    traced replay; eagerly, while tracing, the ints are added now and the
+    tensors (held until then) at ``record()``; otherwise nothing."""
+    if _capturing:
+        clock = _capturing.get(torch.cuda.current_stream().cuda_stream)
+        if clock is not None:
+            clock.counts.append(dict(counts))
+            return
+        if torch.cuda.is_current_stream_capturing():
+            return            # another graph's capture: no replay of it is read
+    if not (_tracing or _profiler._is_profiler_enabled):
+        return
+    with _lock:
+        _add({k: v for k, v in counts.items() if not isinstance(v, torch.Tensor)})
+        _pending.extend((k, v) for k, v in counts.items() if isinstance(v, torch.Tensor))
+
+
 def _resolve(clock: StageClock, at_ns: int) -> None:
     ms = clock.read()
-    _stages.append({"graph": clock.graph, "at_ns": at_ns, "ms": ms,
-                    "total_ms": sum(ms.values())})
+    if clock.marks:
+        _stages.append({"graph": clock.graph, "at_ns": at_ns, "ms": ms,
+                        "total_ms": sum(ms.values())})
+    with _lock:
+        for counts in clock.counts:
+            _add(counts)
 
 
 def before_replay(clock: StageClock) -> None:
@@ -316,9 +360,9 @@ def before_replay(clock: StageClock) -> None:
 
 def replayed(clock: StageClock) -> None:
     """A replay of the clock's graph has been launched: while tracing, its
-    stage times are read later (``before_replay``, ``record``). A graph
-    without stage boundaries is not read."""
-    if clock.marks and (_tracing or _profiler._is_profiler_enabled):
+    stage times and device counters are read later (``before_replay``,
+    ``record``). A graph without either is not read."""
+    if (clock.marks or clock.counts) and (_tracing or _profiler._is_profiler_enabled):
         with _lock:
             _unread[id(clock)] = (clock, time.time_ns())
 
@@ -327,12 +371,16 @@ def record() -> Dict:
     """{"spans": [(name, parent, start_ns, end_ns)], "counters": {name: n},
     "stages": [{"graph", "at_ns" (the replay's launch), "ms": {stage: ms},
     "total_ms"}] in launch order} recorded so far, the unread replays'
-    stage times read first."""
+    stage times and the eager launches' device counters read first."""
     with _lock:
         unread = list(_unread.values())
         _unread.clear()
     for item in unread:
         _resolve(*item)
+    with _lock:
+        for name, v in _pending:
+            _add({name: v})
+        _pending.clear()
     return {"spans": list(_spans), "counters": dict(_counters),
             "stages": sorted(_stages, key=lambda s: s["at_ns"])}
 
@@ -344,3 +392,4 @@ def reset() -> None:
         _counters.clear()
         _stages.clear()
         _unread.clear()
+        _pending.clear()
