@@ -54,6 +54,17 @@ Phases, each printed as one JSON line:
             kernel phase's (whose bound now comes from the same
             conv_traffic_bytes), and the forward's and kernel A's bytes over
             their ms as a share of the card's 3.35 TB/s
+  dgr       DGR's registrar (eval/dgr.py, dgr_kitti_config, seeded weights)
+            on a KITTI-sized pair (67 000 voxels a side, 30 % of the
+            descriptors matching): ms and pairs/s of the graphed chain and
+            its launches a pair, counted alone (kernel A 20 in the wide-K
+            variant tcw and 1 cin1, kernel B 1, asserted); then, on that
+            pair's own 6-D pyramid, kernel A at each distinct k3 conv of the
+            network (729 offsets, tcw asserted) and at conv1 (cin 1, k 729,
+            cin1 asserted) against the plain version over blocks of rows
+            (1e-4 of the output's scale; dead rows 0, two calls bit-equal):
+            graph-timed ms, tcw's ms without its walk tally, and the
+            roofline bound from the map's live entries and bytes
   reference the chain on a small pair, on the card vs on the CPU (the
             plain versions, which the CPU tests hold to the JAX package),
             in f32 for the default and the packed-grid path (equal tables,
@@ -324,11 +335,12 @@ import numpy as np
 import torch
 
 from imfnet_tpu_torch import cli
-from imfnet_tpu_torch.config import kitti_config, threedmatch_config
+from imfnet_tpu_torch.config import dgr_kitti_config, kitti_config, threedmatch_config
 from imfnet_tpu_torch.data.datasets import (KITTIPairDataset, SyntheticPairDataset,
                                              make_data_loader, velo2cam)
 from imfnet_tpu_torch.data.synthetic import _surface_cloud, synthetic_batch, synthetic_pair
 from imfnet_tpu_torch.eval import threedmatch
+from imfnet_tpu_torch.eval.dgr import DGRRegistrar
 from imfnet_tpu_torch.eval.extract import (DEFAULT_BUCKETS, make_bucketed_extractor,
                                            pad_points_bucketed)
 from imfnet_tpu_torch.data.collate import voxelize_np
@@ -415,20 +427,23 @@ KERNELS = {"sparse_conv_gather_gemm": gather_gemm, "flash_nn": flash_nn,
            "sorted_compact": sorted_compact, "word_match": word_match_many}
 A_VARIANTS = {"sparse_conv_gather_gemm.tc": "launches_tc",
               "sparse_conv_gather_gemm.cin1": "launches_cin1",
-              "sparse_conv_gather_gemm.scalar": "launches_scalar"}
+              "sparse_conv_gather_gemm.scalar": "launches_scalar",
+              "sparse_conv_gather_gemm.tcw": "launches_tcw"}
 DEFAULT_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
                     "sorted_compact": 0, "word_match": 0,
                     "sparse_conv_gather_gemm.tc": 20,
-                    "sparse_conv_gather_gemm.cin1": 0, "sparse_conv_gather_gemm.scalar": 0}
+                    "sparse_conv_gather_gemm.cin1": 0, "sparse_conv_gather_gemm.scalar": 0,
+                    "sparse_conv_gather_gemm.tcw": 0}
 # the CUDA kernels of csrc/ by name, as the profiler reports them
-PORT_CUDA_KERNELS = ("gather_gemm_tc", "gather_gemm_cin1", "gather_gemm_kernel",
-                     "nn_transpose_kernel", "nn_transpose_any_kernel", "flash_nn_kernel",
+PORT_CUDA_KERNELS = ("gather_gemm_tc", "gather_gemm_tcw", "gather_gemm_cin1",
+                     "gather_gemm_kernel", "nn_transpose_kernel", "nn_transpose_any_kernel", "flash_nn_kernel",
                      "flash_nn3_kernel", "flash_nnk_kernel", "compact_single_pass",
                      "word_match_kernel")
 GRID_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
                  "sorted_compact": 1, "word_match": 1,
                  "sparse_conv_gather_gemm.tc": 20,
-                 "sparse_conv_gather_gemm.cin1": 0, "sparse_conv_gather_gemm.scalar": 0}
+                 "sparse_conv_gather_gemm.cin1": 0, "sparse_conv_gather_gemm.scalar": 0,
+                 "sparse_conv_gather_gemm.tcw": 0}
 
 
 # one training step: per side 20 tensor-core convs forward and their 20 dX
@@ -437,7 +452,8 @@ GRID_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
 TRAIN_LAUNCHES = {"sparse_conv_gather_gemm": 82, "flash_nn": 2,
                   "sorted_compact": 0, "word_match": 0,
                   "sparse_conv_gather_gemm.tc": 80,
-                  "sparse_conv_gather_gemm.cin1": 2, "sparse_conv_gather_gemm.scalar": 0}
+                  "sparse_conv_gather_gemm.cin1": 2, "sparse_conv_gather_gemm.scalar": 0,
+                  "sparse_conv_gather_gemm.tcw": 0}
 # a step of the trainer builds its pyramids as the config says
 # (use_grid_maps: the grid pyramid, one grouped kernel-D launch a side), and a
 # validation step runs two eval-mode forwards (conv1 as a sparse conv: 21
@@ -446,7 +462,8 @@ TRAINER_STEP_LAUNCHES = dict(TRAIN_LAUNCHES, word_match=2)
 TRAINER_VAL_LAUNCHES = {"sparse_conv_gather_gemm": 42, "flash_nn": 1,
                         "sorted_compact": 0, "word_match": 2,
                         "sparse_conv_gather_gemm.tc": 40,
-                        "sparse_conv_gather_gemm.cin1": 2, "sparse_conv_gather_gemm.scalar": 0}
+                        "sparse_conv_gather_gemm.cin1": 2, "sparse_conv_gather_gemm.scalar": 0,
+                        "sparse_conv_gather_gemm.tcw": 0}
 # the trainer phase: 3 epochs of 4 batches of 2 pairs, 2 validation pairs an epoch
 TRAINER_RUN = dict(synthetic_length=8, max_epoch=3, val_max_iter=2)
 LOADER_WORKER = "PairLoader worker"   # the name of a loader's worker process
@@ -2122,10 +2139,12 @@ BENCH_WIDE = BENCH_FRAGMENTS - 1      # this fragment also sees a wall 16 m away
 FRAGMENT_LAUNCHES = {
     "grid": {"sparse_conv_gather_gemm": 20, "flash_nn": 0, "sorted_compact": 1,
              "word_match": 1, "sparse_conv_gather_gemm.tc": 20,
-             "sparse_conv_gather_gemm.cin1": 0, "sparse_conv_gather_gemm.scalar": 0},
+             "sparse_conv_gather_gemm.cin1": 0, "sparse_conv_gather_gemm.scalar": 0,
+             "sparse_conv_gather_gemm.tcw": 0},
     "exact": {"sparse_conv_gather_gemm": 20, "flash_nn": 0, "sorted_compact": 0,
               "word_match": 0, "sparse_conv_gather_gemm.tc": 20,
-              "sparse_conv_gather_gemm.cin1": 0, "sparse_conv_gather_gemm.scalar": 0},
+              "sparse_conv_gather_gemm.cin1": 0, "sparse_conv_gather_gemm.scalar": 0,
+              "sparse_conv_gather_gemm.tcw": 0},
 }
 SMALL_FRAGMENT_POINTS = 6000          # the card-vs-CPU fragment
 
@@ -2453,7 +2472,8 @@ ICP_CPU_POINTS = 8192                 # the card-vs-CPU ICP check, per side
 ICP_ATOL = 1e-4
 KITTI_PAIR_LAUNCHES = {"sparse_conv_gather_gemm": 40, "flash_nn": 2, "sorted_compact": 0,
                        "word_match": 2, "sparse_conv_gather_gemm.tc": 40,
-                       "sparse_conv_gather_gemm.cin1": 0, "sparse_conv_gather_gemm.scalar": 0}
+                       "sparse_conv_gather_gemm.cin1": 0, "sparse_conv_gather_gemm.scalar": 0,
+                       "sparse_conv_gather_gemm.tcw": 0}
 
 
 def write_kitti_scans(root, seed=0):
@@ -2679,12 +2699,14 @@ ZOO_CONVS = (("conv1", 0, "k5", 1, 32), ("conv2", 1, "down", 32, 64),
              ("conv2_tr", 0, "up", 128, 64), ("conv1_tr", 0, "k3_same", 96, 32))
 ZOO_FRAGMENT_LAUNCHES = {"sparse_conv_gather_gemm": 8, "flash_nn": 0, "sorted_compact": 1,
                          "word_match": 1, "sparse_conv_gather_gemm.tc": 7,
-                         "sparse_conv_gather_gemm.cin1": 1, "sparse_conv_gather_gemm.scalar": 0}
+                         "sparse_conv_gather_gemm.cin1": 1, "sparse_conv_gather_gemm.scalar": 0,
+                         "sparse_conv_gather_gemm.tcw": 0}
 # a training step: per side 8 forward convs and the dX calls of the 7 whose
 # input needs a gradient (not conv1's); one positive search per pair
 ZOO_STEP_LAUNCHES = {"sparse_conv_gather_gemm": 30, "flash_nn": 2, "sorted_compact": 0,
                      "word_match": 0, "sparse_conv_gather_gemm.tc": 28,
-                     "sparse_conv_gather_gemm.cin1": 2, "sparse_conv_gather_gemm.scalar": 0}
+                     "sparse_conv_gather_gemm.cin1": 2, "sparse_conv_gather_gemm.scalar": 0,
+                     "sparse_conv_gather_gemm.tcw": 0}
 ZOO_STEPS = 3
 # the image saliency's backward reaches the image through the fusion, so
 # only the 9 decoder convs after it take a dX call (kernel A through their
@@ -3006,7 +3028,8 @@ def phase_dam(root, ckpt, frag0, gen):
     want_cli = {"sparse_conv_gather_gemm": 49, "flash_nn": 0, "sorted_compact": 1,
                 "word_match": 1 if cfg.use_grid_maps else 0,
                 "sparse_conv_gather_gemm.tc": 49, "sparse_conv_gather_gemm.cin1": 0,
-                "sparse_conv_gather_gemm.scalar": 0}
+                "sparse_conv_gather_gemm.scalar": 0,
+                "sparse_conv_gather_gemm.tcw": 0}
     if cli_launches != want_cli or a_fwd != 20 or a_dx != len(DAM_DX_CONVS):
         raise AssertionError(f"dam: launches {cli_launches} (want {want_cli}), A forward "
                              f"{a_fwd}, A dX {a_dx}")
@@ -3052,7 +3075,8 @@ def phase_visualize(root, ckpt, scene_dir):
           "view_points": {v: len(d["points"]) for v, d in views.items()}})
     want = {"sparse_conv_gather_gemm": 40, "flash_nn": 2, "sorted_compact": 2, "word_match": 2,
             "sparse_conv_gather_gemm.tc": 40, "sparse_conv_gather_gemm.cin1": 0,
-            "sparse_conv_gather_gemm.scalar": 0}
+            "sparse_conv_gather_gemm.scalar": 0,
+            "sparse_conv_gather_gemm.tcw": 0}
     if launches != want:
         raise AssertionError(f"visualize: launches {launches}, want {want}")
     rigid = np.allclose(pose[:3, :3] @ pose[:3, :3].T, np.eye(3), atol=1e-3)
@@ -4172,6 +4196,167 @@ def phase_graphs_3dmatch(gen):
              entry["pairs"]["graphed"]["median_ms"], "graphs_3dmatch_profile", "pair")]
 
 
+# DGR's 6-D inlier network (eval/dgr.py): its 20 k3 convs are the main
+# path's levels and widths at 3^6 = 729 offsets, all in kernel A's wide-K
+# variant; conv1 (cin 1, k 729) in the cin1 variant; one kernel-B search
+DGR_K = 3 ** 6
+DGR_LAUNCHES = {"sparse_conv_gather_gemm": 21, "flash_nn": 1, "sorted_compact": 0,
+                "word_match": 0, "sparse_conv_gather_gemm.tc": 0,
+                "sparse_conv_gather_gemm.cin1": 1, "sparse_conv_gather_gemm.scalar": 0,
+                "sparse_conv_gather_gemm.tcw": 20}
+DGR_VOXELS, DGR_INLIERS, DGR_PAIRS = 67_000, 0.3, 5
+DGR_PLAIN_ROWS = 2048    # the plain version's rows a block: [2048, 729 * cin] f32 at most 1.5 GB
+
+
+def dgr_pair(seed=0):
+    """A KITTI-sized DGR pair: 67 000 voxels of 0.3 m over a 40 m disc, the
+    second scan the first under a yaw of 0.15 rad and 11 m; 32-d unit
+    descriptors, of which 30 % of the target's repeat the source voxel's
+    plus 0.1 noise and the rest are drawn anew."""
+    rng = np.random.default_rng(seed)
+    n = 2 * DGR_VOXELS
+    r, a = 40 * np.sqrt(rng.random(n)), 2 * np.pi * rng.random(n)
+    xyz = np.c_[r * np.cos(a), r * np.sin(a), 3 * rng.random(n) - 1.5].astype(np.float32)
+    _, first = np.unique(np.floor(xyz / np.float32(0.3)).astype(np.int64), axis=0,
+                         return_index=True)
+    xyz0 = xyz[np.sort(first)][:DGR_VOXELS]
+    c, s = np.cos(0.15), np.sin(0.15)
+    R = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]], np.float32)
+    xyz1 = (xyz0 @ R.T + np.array([11.0, 0.5, 0.1], np.float32)).astype(np.float32)
+    f0 = rng.standard_normal((DGR_VOXELS, 32)).astype(np.float32)
+    f1 = rng.standard_normal((DGR_VOXELS, 32)).astype(np.float32)
+    keep = rng.random(DGR_VOXELS) < DGR_INLIERS
+    f1[keep] = f0[keep] + 0.1 * rng.standard_normal((int(keep.sum()), 32))
+    f0 /= np.linalg.norm(f0, axis=1, keepdims=True)
+    f1 /= np.linalg.norm(f1, axis=1, keepdims=True)
+    return xyz0, f0, xyz1, f1
+
+
+def plain_blocked(x, nbr, w):
+    """gather_gemm_plain over blocks of DGR_PLAIN_ROWS output rows: at 729
+    offsets the whole gathered matrix would not fit the card."""
+    return torch.cat([gather_gemm_plain(x, nbr[i:i + DGR_PLAIN_ROWS], w)
+                      for i in range(0, nbr.shape[0], DGR_PLAIN_ROWS)])
+
+
+def dgr_conv_entry(name, x, nbr, w, plan):
+    """Kernel A at one DGR conv against the plain version: the plan and
+    variant counter, the error over the output's scale, dead rows exactly 0,
+    two calls bit-equal; graph-timed ms, with the wide-K walk tally and
+    without it, and the roofline bound from the inputs."""
+    n_out, k = nbr.shape
+    n_in, cin, cout = x.shape[0], w.shape[1], w.shape[2]
+    attr = f"launches_{plan.variant}"
+    before = getattr(gather_gemm, attr)
+    out = gather_gemm(x, nbr, w)
+    again = gather_gemm(x, nbr, w)
+    if getattr(gather_gemm, attr) != before + 2:
+        raise AssertionError(f"dgr: {name} did not launch kernel A's {plan.variant} variant")
+    ref = plain_blocked(x, nbr, w)
+    torch.cuda.synchronize()
+    scale = max(float(ref.abs().max()), 1e-30)
+    err = float((out - ref).abs().max()) / scale
+    dead = (nbr < 0).all(dim=1)
+    bit_equal = torch.equal(out, again)
+    if err > CONV_TOL_REL or not bool((out[dead] == 0).all()) or not bit_equal:
+        raise AssertionError(f"dgr: kernel A disagrees at {name}: {err} of the output's "
+                             f"scale > {CONV_TOL_REL}, a dead row is not exactly 0, or two "
+                             f"calls differ (bit-equal {bit_equal})")
+    del ref, again
+    nnz = int((nbr >= 0).sum())
+    ops_ms = 2.0 * nnz * cin * cout / PEAK_BF16_FLOPS * 1e3
+    nbytes = conv_traffic_bytes(n_out, n_in, k, cin, cout, nbr=nbr)
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    entry = {"conv": name, "n_out": n_out, "n_in": n_in, "k": k, "cin": cin, "cout": cout,
+             "nnz": nnz, "live_share": nnz / (n_out * k), "variant": plan.variant,
+             "tile": [plan.bm, plan.bn], "bk": plan.bk, "split": plan.split,
+             "max_rel_err": err, "tol_rel": CONV_TOL_REL, "bit_equal": bit_equal,
+             "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+             "bound_ms": max(ops_ms, bytes_ms),
+             "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+    if plan.variant != "tcw":
+        entry["ms"] = graph_ms(lambda: gather_gemm(x, nbr, w), 5)
+        return entry
+    # the walk tally on and off in turn, three times each, so that a drift
+    # of the card's clock falls on both; the medians
+    on, off = [], []
+    for _ in range(3):
+        on.append(graph_ms(lambda: gather_gemm(x, nbr, w), 5))
+        off.append(graph_ms(lambda: conv_run_plan(x, nbr, w, plan, tally=False), 5))
+    entry["ms"], entry["ms_without_tally"] = float(np.median(on)), float(np.median(off))
+    return entry
+
+
+def phase_dgr(gen):
+    """DGR's registrar on the card at the cell's size: the graphed chain's
+    pairs/s and launches a pair (counts zeroed before the timed pairs:
+    kernel A 20 wide-K + 1 cin1, B 1, asserted), then kernel A against its
+    plain version on that pair's own 6-D pyramid at each distinct conv of
+    the network (wide-K) and at conv1 (cin1, k 729). Returns kernel A's
+    summary for the kernels line."""
+    reg = DGRRegistrar(dgr_kitti_config(), device="cuda", seed=0)
+    seen = []
+    reg.model.register_forward_hook(lambda mod, inputs, out: seen.append(inputs))
+    pair = dgr_pair()
+    for _ in range(2):                   # the eager call, then the capture
+        reg(*pair)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(DGR_PAIRS):
+        out = reg(*pair)
+    seconds = (time.perf_counter() - t0) / DGR_PAIRS
+    launches = {k: v / DGR_PAIRS for k, v in read_counts().items()}
+    if launches != DGR_LAUNCHES:
+        raise AssertionError(f"dgr: launches a pair {launches}, want {DGR_LAUNCHES}")
+    sv, pyr = seen[-1][0], seen[-1][1]  # the capture's buffers, as the last replay left them
+    levels = [int(lv.num_valid) for lv in pyr.levels]
+    del reg, seen
+    entries, done = [], {}
+    for name, level, which, cin, cout in MAIN_PATH_CONVS:
+        key = (level, which, cin, cout)
+        if key in done:
+            done[key]["count"] += 1
+            continue
+        src = {"k3_same": level, "down": level - 1, "up": level + 1}[which]
+        nbr = getattr(pyr.levels[level], which)
+        x = torch.randn((pyr.levels[src].coords.shape[0], cin), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        w = (torch.randn((DGR_K, cin, cout), generator=gen, device="cuda")
+             * (DGR_K * cin) ** -0.5).to(torch.bfloat16)
+        plan = conv_plan(nbr.shape[0], cin, cout, DGR_K, x.dtype)
+        if plan.variant != "tcw":
+            raise AssertionError(f"dgr: {name} {key} planned {plan}, not the wide-K variant")
+        done[key] = dgr_conv_entry(name, x, nbr, w, plan)
+        done[key]["count"] = 1
+        entries.append(done[key])
+    nbr = pyr.levels[0].k3_same
+    x = torch.randn((nbr.shape[0], 1), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((DGR_K, 1, 32), generator=gen, device="cuda").to(torch.bfloat16)
+    plan = conv_plan(nbr.shape[0], 1, 32, DGR_K, x.dtype)
+    if plan.variant != "cin1":
+        raise AssertionError(f"dgr: conv1 planned {plan}, not the cin1 variant")
+    conv1 = dgr_conv_entry("conv1", x, nbr, w, plan)
+    for e in entries + [conv1]:
+        emit({"phase": "dgr_kernel", "kernel": "sparse_conv_gather_gemm", **e})
+    total = lambda k: sum(e[k] * e["count"] for e in entries)  # noqa: E731
+    summary = {"dgr_launches_per_pair": launches["sparse_conv_gather_gemm"],
+               "dgr_launches_by_variant": {v: launches[f"sparse_conv_gather_gemm.{v}"]
+                                           for v in ("tc", "cin1", "scalar", "tcw")},
+               "dgr_max_rel_err": max(e["max_rel_err"] for e in entries + [conv1]),
+               "dgr_tcw_ms": total("ms"), "dgr_tcw_ms_without_tally": total("ms_without_tally"),
+               "dgr_tcw_bound_ms": total("bound_ms"),
+               "dgr_tcw_roofline_share": total("bound_ms") / total("ms"),
+               "dgr_conv1_ms": conv1["ms"], "dgr_conv1_bound_ms": conv1["bound_ms"],
+               "dgr_conv1_tile": [plan.bm, plan.bn]}
+    emit({"phase": "dgr", "voxels": DGR_VOXELS, "rows_valid": levels,
+          "ms_per_pair": seconds * 1e3, "pairs_per_s": 1.0 / seconds,
+          "launches_per_pair": launches, "wsum": float(out["wsum"]), **summary})
+    del pyr, sv, x, w, nbr
+    torch.cuda.empty_cache()
+    return summary
+
+
 def phase_eval_graphs(gen):
     """The five phases of kernel B's widths and the evaluation side's graphs;
     returns kernel B's width entries and the profile runs, which come after
@@ -4232,6 +4417,7 @@ def main():
         kern["launches"] = grid_launches[kern["name"]]
     kernels += grid_kernels
     phase_roofline(reg, pyr, kernels[0], stages)
+    dgr = phase_dgr(gen)                # DGR's 6-D path, its launches counted alone
 
     phase_reference()
     phase_reference("grid", **grid)
@@ -4277,7 +4463,8 @@ def main():
     del reg, reg_grid, reg_eager, reg_grid_eager, gstep, gstate
     a, b = kernels[0], kernels[1]
     by_variant = lambda counts: {v: counts[f"sparse_conv_gather_gemm.{v}"]  # noqa: E731
-                                 for v in ("tc", "cin1", "scalar")}
+                                 for v in ("tc", "cin1", "scalar", "tcw")}
+    a.update(dgr)
     a.update({"launches_by_variant": by_variant(launches),
               "train_launches": train_launches[a["name"]],
               "train_launches_by_variant": by_variant(train_launches),

@@ -181,3 +181,17 @@ def kitti_config(**overrides) -> Config:
     )
     base.update(overrides)
     return Config(**base)
+
+
+def dgr_kitti_config(**overrides) -> Config:
+    """Deep Global Registration's inlier network on KITTI scan pairs
+    (``eval.dgr``): KITTI's voxel 0.3 and 131 072 rows a side, and the
+    network's own settings in the fields that hold them: ResUNetBN2C with
+    conv1 k3 (DGR's ``inlier_conv1_kernel_size``), one output logit, no
+    feature normalization. Its correspondences do not shrink as 3-D scans
+    do when coarsened (outliers never merge), so every level keeps the
+    whole padded capacity."""
+    base = dict(conv1_kernel_size=3, model_n_out=1, normalize_feature=False,
+                level_capacity_divisors=(1, 1, 1, 1))
+    base.update(overrides)
+    return kitti_config(**base)

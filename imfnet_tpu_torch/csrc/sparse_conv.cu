@@ -40,8 +40,8 @@
 //   (BN 32, 64 or 128: one warp per 32 rows, one or two across), for each
 //   part of a split of the offsets. Its shared memory grows with K (the map
 //   block); the plan narrows BK, then BN, to stay within the H100's 227 KB
-//   per block, and sends a K that fits no tile (K > 351) to the scalar
-//   variant:
+//   per block, and sends a K that fits no tile (K > 351) to the wide-K form
+//   below (the map block staged in chunks). The tile:
 //   - the map is read once per tile: the tile's [128, K] int32 block, which
 //     is contiguous, in one coalesced pass into shared memory, and the
 //     offsets with a live row are listed from it; only those are walked
@@ -526,6 +526,278 @@ gather_gemm_tc(const __nv_bfloat16* __restrict__ x, const int* __restrict__ nbr,
   cluster.sync();  // no block leaves while a peer still reads its partial
 }
 
+// ------------------------------------ tensor cores, a wide kernel volume
+
+// The tensor-core tile above for a K whose [TBM, K] map block does not fit
+// shared memory (K = 3^6 = 729 at the 6-D k3 convs: 373 KB a block). The map
+// block is staged in chunks of WK_CHUNK offsets instead; each chunk lists its
+// live offsets (those with a live row in the tile) and walks them through the
+// same cp.async ring and mma.sync products, the accumulators staying in
+// registers across all chunks. A chunk with no live offset costs its map read
+// alone; a tile with none writes zeros. The ring drains at each chunk's end,
+// since the next chunk's map rewrites the block the loads index.
+//
+// With `words` given, part 0 of each tile's first column block adds the
+// (row-tile x live offset) steps it walked, as TBM rows each, to words[0]
+// and the live map entries of its rows to words[1]: the share of the walk
+// that gathers a live row.
+
+constexpr int WK_CHUNK = 128;              // offsets a staged map chunk holds
+constexpr int WK_LD = WK_CHUNK + 1;        // its row stride: conflict-free columns
+
+template <int TBM, int TBN, int TBK>
+struct TcwTile {
+  using T = TcTile<TBM, TBN, TBK>;
+  // keep in step with tcw_smem_bytes in sparse/conv_kernel.py: the ring (or
+  // the split's partial tile), the map chunk, its live flags and list, and
+  // three counters
+  static constexpr size_t SMEM_BYTES =
+      T::BUF_BYTES + (size_t)(TBM * WK_LD + 2 * WK_CHUNK + 4) * sizeof(int);
+};
+
+template <int TBM, int TBN, int TBK>
+__global__ void __launch_bounds__(TcTile<TBM, TBN, TBK>::THREADS)
+gather_gemm_tcw(const __nv_bfloat16* __restrict__ x, const int* __restrict__ nbr,
+                const __nv_bfloat16* __restrict__ w, float* __restrict__ out,
+                int n_out, int k_vol, int cin, int cout,
+                unsigned long long* __restrict__ words) {
+  using T = TcTile<TBM, TBN, TBK>;
+  constexpr int NTH = T::THREADS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* map_s = reinterpret_cast<int*>(smem + T::BUF_BYTES);  // [TBM, WK_LD]
+  int* flag_s = map_s + TBM * WK_LD;                          // live flags
+  int* list_s = flag_s + WK_CHUNK;                            // live columns
+  int* n_live_s = list_s + WK_CHUNK;
+  int* entries_s = n_live_s + 1;                              // live entries
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = blockIdx.x * TBM, col0 = blockIdx.y * TBN;
+  const int split = gridDim.z, part = blockIdx.z;
+  const int rows_here = min(TBM, n_out - row0);
+  const bool counting = words != nullptr && blockIdx.y == 0 && part == 0;
+  const int csteps = (cin + TBK - 1) / TBK;
+  if (tid == 0) *entries_s = 0;
+
+  auto stage_a = [&](int s) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + s * T::STAGE_BYTES);
+  };
+  auto stage_b = [&](int s) { return stage_a(s) + T::A_ELEMS; };
+
+  const int wm = warp / T::WN, wn = warp % T::WN;
+  float acc[T::MT][T::NTL][4];
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NTL; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  auto compute = [&](int s) {
+    const __nv_bfloat16* as = stage_a(s);
+    const __nv_bfloat16* bs = stage_b(s);
+#pragma unroll
+    for (int kk = 0; kk < TBK; kk += 16) {
+      uint32_t a[T::MT][4];
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i) {
+        const int r = wm * T::TM + i * 16 + (lane & 15);
+        ldmatrix_x4(a[i], smem_u32(as + r * T::A_LD + kk + (lane >> 4) * 8));
+      }
+      uint32_t b[T::NTL][2];
+#pragma unroll
+      for (int j = 0; j < T::NTL; j += 2) {
+        const int kr = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int c = wn * T::TN + j * 8 + (lane >> 4) * 8;
+        uint32_t r4[4];
+        ldmatrix_x4_trans(r4, smem_u32(bs + kr * T::B_LD + c));
+        b[j][0] = r4[0];
+        b[j][1] = r4[1];
+        b[j + 1][0] = r4[2];
+        b[j + 1][1] = r4[3];
+      }
+#pragma unroll
+      for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < T::NTL; ++j) mma_bf16_16816(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+  };
+
+  long long walked = 0;
+  for (int k0 = 0; k0 < k_vol; k0 += WK_CHUNK) {
+    const int kc = min(WK_CHUNK, k_vol - k0);
+    // 1. the chunk's map block: each row's kc entries are contiguous
+    for (int c = tid; c < WK_CHUNK; c += NTH) flag_s[c] = 0;
+    __syncthreads();
+    int mine = 0;
+    for (int e = tid; e < TBM * WK_CHUNK; e += NTH) {
+      const int r = e / WK_CHUNK, c = e % WK_CHUNK;
+      if (c >= kc) continue;
+      const int v = r < rows_here ? __ldg(nbr + (size_t)(row0 + r) * k_vol + k0 + c) : -1;
+      map_s[r * WK_LD + c] = v;
+      if (v >= 0) {
+        flag_s[c] = 1;  // every writer stores the same value
+        ++mine;
+      }
+    }
+    if (counting && mine) atomicAdd(entries_s, mine);
+    __syncthreads();
+    // 2. its live columns, in order (one warp, a ballot a 32 columns)
+    if (warp == 0) {
+      int n = 0;
+      for (int c0 = 0; c0 < WK_CHUNK; c0 += 32) {
+        const int c = c0 + lane;
+        const bool live = c < kc && flag_s[c];
+        const unsigned m = __ballot_sync(0xffffffffu, live);
+        if (live) list_s[n + __popc(m & ((1u << lane) - 1u))] = c;
+        n += __popc(m);
+      }
+      if (lane == 0) *n_live_s = n;
+    }
+    __syncthreads();
+    const int n_live = *n_live_s;
+    walked += n_live;
+
+    // 3. this part's steps of the chunk: live columns p, p + split, ...,
+    // each in slices of TBK input channels, through the ring
+    const int my_offsets = n_live > part ? (n_live - part + split - 1) / split : 0;
+    const int n_steps = my_offsets * csteps;
+    int next_i = part, next_c0 = 0;
+    auto load_next = [&](int s) {
+      const int c = list_s[next_i];
+      const int k = k0 + c;
+      const int c0 = next_c0;
+      next_c0 += TBK;
+      if (next_c0 >= cin) {
+        next_c0 = 0;
+        next_i += split;
+      }
+      __nv_bfloat16* as = stage_a(s);
+      __nv_bfloat16* bs = stage_b(s);
+#pragma unroll
+      for (int i = 0; i < (TBM * T::A_CH + NTH - 1) / NTH; ++i) {
+        const int e = tid + i * NTH;
+        if ((TBM * T::A_CH) % NTH != 0 && e >= TBM * T::A_CH) break;
+        const int r = e / T::A_CH, ch = (e % T::A_CH) * 8;
+        const int src = map_s[r * WK_LD + c];
+        const bool ok = src >= 0 && c0 + ch < cin;
+        const __nv_bfloat16* g = ok ? x + (size_t)src * cin + c0 + ch : x;
+        cp_async_16(smem_u32(as + r * T::A_LD + ch), g, ok ? 16 : 0);
+      }
+#pragma unroll
+      for (int i = 0; i < (TBK * T::B_CH + NTH - 1) / NTH; ++i) {
+        const int e = tid + i * NTH;
+        if ((TBK * T::B_CH) % NTH != 0 && e >= TBK * T::B_CH) break;
+        const int kr = e / T::B_CH, ch = (e % T::B_CH) * 8;
+        const bool ok = c0 + kr < cin && col0 + ch < cout;
+        const __nv_bfloat16* g =
+            ok ? w + ((size_t)k * cin + c0 + kr) * cout + col0 + ch : w;
+        cp_async_16(smem_u32(bs + kr * T::B_LD + ch), g, ok ? 16 : 0);
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < TC_STAGES - 1; ++s) {
+      if (s < n_steps) load_next(s);
+      cp_async_commit();
+    }
+    for (int t = 0; t < n_steps; ++t) {
+      cp_async_wait<TC_STAGES - 2>();
+      __syncthreads();
+      if (t + TC_STAGES - 1 < n_steps) load_next((t + TC_STAGES - 1) % TC_STAGES);
+      cp_async_commit();
+      compute(t % TC_STAGES);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring and the chunk's map are free again
+  }
+  if (counting && tid == 0) {
+    atomicAdd(words, (unsigned long long)walked * TBM);
+    atomicAdd(words + 1, (unsigned long long)*entries_s);
+  }
+
+  // 4. epilogue, as the tensor-core tile's
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+  if (split == 1) {
+#pragma unroll
+    for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+      for (int j = 0; j < T::NTL; ++j) {
+        const int c = col0 + wn * T::TN + j * 8 + c2;
+        if (c >= cout) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + wm * T::TM + i * 16 + g + 8 * h;
+          if (r < n_out)
+            *reinterpret_cast<float2*>(out + (size_t)r * cout + c) =
+                make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        }
+      }
+    return;
+  }
+  const int rows_per_part = TBM / split;
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < T::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < T::NTL; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * T::TM + i * 16 + g + 8 * h;
+        const int c = wn * T::TN + j * 8 + c2;
+        *reinterpret_cast<float2*>(red + r * T::RED_LD + c) =
+            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  for (int e = tid; e < rows_per_part * (TBN / 4); e += NTH) {
+    const int r = part * rows_per_part + e / (TBN / 4);
+    const int c = (e % (TBN / 4)) * 4;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < split; ++q) {
+      const float* peer = cluster.map_shared_rank(red, q);
+      const float4 v = *reinterpret_cast<const float4*>(peer + r * T::RED_LD + c);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    if (row0 + r < n_out && col0 + c < cout)
+      *reinterpret_cast<float4*>(out + (size_t)(row0 + r) * cout + col0 + c) = s;
+  }
+  cluster.sync();
+}
+
+template <int TBM, int TBN, int TBK>
+cudaError_t launch_tcw(const void* x, const void* nbr, const void* w, void* out,
+                       int n_out, int k_vol, int cin, int cout, int split,
+                       unsigned long long* words, cudaStream_t stream) {
+  using T = TcTile<TBM, TBN, TBK>;
+  const size_t smem = TcwTile<TBM, TBN, TBK>::SMEM_BYTES;
+  auto kernel = gather_gemm_tcw<TBM, TBN, TBK>;
+  static bool smem_allowed = false;  // per instance, once
+  if (!smem_allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    smem_allowed = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_out + TBM - 1) / TBM, (cout + TBN - 1) / TBN, split);
+  cfg.blockDim = dim3(T::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(x),
+                            static_cast<const int*>(nbr),
+                            static_cast<const __nv_bfloat16*>(w),
+                            static_cast<float*>(out), n_out, k_vol, cin, cout, words);
+}
+
 template <int TBM, int TBN, int TBK>
 cudaError_t launch_tc(const void* x, const void* nbr, const void* w, void* out,
                       int n_out, int k_vol, int cin, int cout, int split,
@@ -560,18 +832,22 @@ cudaError_t launch_tc(const void* x, const void* nbr, const void* w, void* out,
 
 using TcLaunch = cudaError_t (*)(const void*, const void*, const void*, void*,
                                  int, int, int, int, int, cudaStream_t);
+using TcwLaunch = cudaError_t (*)(const void*, const void*, const void*, void*,
+                                  int, int, int, int, int, unsigned long long*,
+                                  cudaStream_t);
 
-// the tensor-core instances: (bm, bn, bk) -> launcher. Keep in step with
-// TC_TILES in sparse/conv_kernel.py.
+// the tensor-core instances: (bm, bn, bk) -> launchers of the tile and of
+// its wide-K form. Keep in step with TC_TILES in sparse/conv_kernel.py.
 struct TcInstance {
   int bm, bn, bk;
   TcLaunch launch;
+  TcwLaunch launch_wide;
 };
 constexpr TcInstance TC_INSTANCES[] = {
-    {128, 32, 32, launch_tc<128, 32, 32>},
-    {128, 64, 32, launch_tc<128, 64, 32>},
-    {128, 128, 32, launch_tc<128, 128, 32>},
-    {128, 128, 64, launch_tc<128, 128, 64>},
+    {128, 32, 32, launch_tc<128, 32, 32>, launch_tcw<128, 32, 32>},
+    {128, 64, 32, launch_tc<128, 64, 32>, launch_tcw<128, 64, 32>},
+    {128, 128, 32, launch_tc<128, 128, 32>, launch_tcw<128, 128, 32>},
+    {128, 128, 64, launch_tc<128, 128, 64>, launch_tcw<128, 128, 64>},
 };
 
 }  // namespace
@@ -584,14 +860,16 @@ constexpr TcInstance TC_INSTANCES[] = {
 // bm x bn tile of one of TC_INSTANCES, bk input channels a step, and the
 // live offsets split over `split` blocks of a cluster (1..8, dividing bm);
 // 2 the cin = 1 kernel (bf16 or f32) with bm rows a block (32, 64 or 128;
-// bn, bk and split are ignored) and out 16-byte aligned.
+// bn, bk and split are ignored) and out 16-byte aligned; 3 the tensor-core
+// kernel's wide-K form (as 1, the map staged in chunks of offsets), which
+// adds its walked steps and live entries to `words` (two uint64, or null).
 // Launches on `stream` and returns a CUDA error code (cudaErrorInvalidValue
 // for a combination that has no kernel).
 extern "C" int sparse_conv_gather_gemm(const void* x, const void* nbr,
                                        const void* w, void* out, int n_out,
                                        int k_vol, int cin, int cout,
                                        int is_bf16, int variant, int bm, int bn,
-                                       int bk, int split, void* stream) {
+                                       int bk, int split, void* words, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 0) {
     const dim3 grid((n_out + BM - 1) / BM, (cout + BN - 1) / BN);
@@ -618,12 +896,16 @@ extern "C" int sparse_conv_gather_gemm(const void* x, const void* nbr,
   const bool aligned = (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(w) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  if (variant != 1 || !is_bf16 || cin % 8 != 0 || cout % 8 != 0 || !aligned ||
-      split < 1 || split > TC_MAX_SPLIT || bm % split != 0)
+  if ((variant != 1 && variant != 3) || !is_bf16 || cin % 8 != 0 || cout % 8 != 0 ||
+      !aligned || split < 1 || split > TC_MAX_SPLIT || bm % split != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   for (const TcInstance& inst : TC_INSTANCES) {
     if (inst.bm != bm || inst.bn != bn || inst.bk != bk) continue;
-    const cudaError_t e = inst.launch(x, nbr, w, out, n_out, k_vol, cin, cout, split, s);
+    const cudaError_t e =
+        variant == 1
+            ? inst.launch(x, nbr, w, out, n_out, k_vol, cin, cout, split, s)
+            : inst.launch_wide(x, nbr, w, out, n_out, k_vol, cin, cout, split,
+                               static_cast<unsigned long long*>(words), s);
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
   }

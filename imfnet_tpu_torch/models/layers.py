@@ -116,11 +116,13 @@ class SparseBasicBlock(nn.Module):
 
     def __init__(self, channels: int, norm_type: str = "BN",
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 bn_momentum: float = 0.05):
+                 bn_momentum: float = 0.05, kernel_volume: int = 27):
         super().__init__()
-        self.conv0 = SparseConv(channels, channels, 27, compute_dtype=compute_dtype)
+        self.conv0 = SparseConv(channels, channels, kernel_volume,
+                                compute_dtype=compute_dtype)
         self.norm0 = SparseNorm(norm_type, channels, bn_momentum)
-        self.conv1 = SparseConv(channels, channels, 27, compute_dtype=compute_dtype)
+        self.conv1 = SparseConv(channels, channels, kernel_volume,
+                                compute_dtype=compute_dtype)
         self.norm1 = SparseNorm(norm_type, channels, bn_momentum)
 
     def forward(self, feats, nbr, mask, batch_ids, max_batch, num_valid=None):

@@ -6,6 +6,9 @@ residual blocks, image fusion at stride 8, three transpose-conv decoder
 stages with skip concats, 1x1 convs to the descriptor, row-wise L2
 normalization. The 20 k3 convs (3 down, 14 in residual blocks, 3 up) run
 kernel A; conv1 with occupancy input and the 1x1 convs are plain products.
+``dim`` 6 builds the same network over 6-D coordinates (3^6 = 729 offsets
+a k3 conv, ``conv1_kernel_size ** 6`` for conv1): Deep Global
+Registration's inlier network (``eval.dgr``), with ``with_image=False``.
 Every conv is handed its map's exact inverse, so the backward of a training
 step is kernel A again (``sparse.ops``); ``train()`` / ``eval()`` choose
 batch or running statistics in the norms.
@@ -49,25 +52,30 @@ class ResUNetIMF(nn.Module):
         compute_dtype: torch.dtype = torch.bfloat16,
         conv1_occupancy: bool = False,
         bn_momentum: float = 0.05,
+        dim: int = 3,
     ):
         super().__init__()
+        if dim not in (3, 6):
+            raise ValueError(f"ResUNetIMF: dim must be 3 or 6, got {dim}")
         ch, tr = channels, tr_channels
         dt = compute_dtype
+        k3 = 3 ** dim
+        self.dim = dim
         self.in_channels = in_channels
         self.normalize_feature = normalize_feature
         self.with_image = with_image
         self.conv1_occupancy = conv1_occupancy
 
-        def conv(cin, cout, k=27, bias=False):
+        def conv(cin, cout, k=k3, bias=False):
             return SparseConv(cin, cout, k, use_bias=bias, compute_dtype=dt)
 
         def block(c):
-            return SparseBasicBlock(c, block_norm_type, dt, bn_momentum)
+            return SparseBasicBlock(c, block_norm_type, dt, bn_momentum, k3)
 
         def norm(c):
             return SparseNorm(norm_type, c, bn_momentum)
 
-        self.conv1 = conv(in_channels, ch[0], conv1_kernel_size ** 3)
+        self.conv1 = conv(in_channels, ch[0], conv1_kernel_size ** dim)
         self.norm1 = norm(ch[0])
         self.block1 = block(ch[0])
         self.conv2 = conv(ch[0], ch[1])

@@ -302,7 +302,8 @@ def kernel_launches() -> Dict[str, int]:
             "sorted_compact": sorted_compact.launches, "word_match": word_match_many.launches,
             "sparse_conv_gather_gemm.tc": gather_gemm.launches_tc,
             "sparse_conv_gather_gemm.cin1": gather_gemm.launches_cin1,
-            "sparse_conv_gather_gemm.scalar": gather_gemm.launches_scalar}
+            "sparse_conv_gather_gemm.scalar": gather_gemm.launches_scalar,
+            "sparse_conv_gather_gemm.tcw": gather_gemm.launches_tcw}
 
 
 def train_state_arrays(state: TrainState) -> Dict[str, Dict[str, torch.Tensor]]:

@@ -5,7 +5,7 @@ plain PyTorch version.
 
 Replaces the TPU kernels of ``imfnet_tpu/sparse/pallas_conv.py``
 (``banded_conv_pallas_union``, ``banded_conv_pallas_planned`` and their jit
-wrapper ``banded_conv_pallas``): one function, so one kernel, in three
+wrapper ``banded_conv_pallas``): one function, so one kernel, in four
 variants that ``conv_plan`` chooses between from dtype and shape:
 
 - ``"tc"``: bf16 operands with ``cin`` and ``cout`` multiples of 8 and
@@ -13,14 +13,22 @@ variants that ``conv_plan`` chooses between from dtype and shape:
   cores (``mma.sync`` bf16 → f32), ``cp.async``-staged gathers, a
   ``bm × bn`` tile per block, ``bk`` input channels a step, the live
   offsets split over ``split`` blocks of one cluster.
+- ``"tcw"``: the same tile where its ``[bm, k_vol]`` map block would not
+  fit a block's shared memory (the 6-D k3 convs of ``eval.dgr``, k_vol
+  729): the map block is staged ``WK_CHUNK`` offsets at a time and each
+  chunk's live offsets are walked through the same ring. Each launch
+  tallies on the card the (row tile × live offset) steps it walked, as
+  ``bm`` rows each, and the live entries of the map
+  (``conv.slots_walked``, ``conv.entries_live``, beside the map's
+  ``conv.map_slots``, N_out × k_vol; ``utils.timer.count_device``).
 - ``"cin1"``: one input channel, bf16 or f32, at any alignment (conv1 of
   every training step and of SimpleNet, k 125): one thread per output row
   with 32 f32 accumulators (a wider ``cout`` in passes of 32), the block's
   ``[bm, k_vol]`` map block and the pass's ``W[:, 0, :]`` staged in shared
   memory, one gathered scalar per offset, summed in offset order.
 - ``"scalar"``: everything else (f32 operands at ``cin > 1``, other widths,
-  and a ``k_vol`` whose map block would not fit a block's shared memory):
-  f32 FMAs on a 64 × 64 tile.
+  and a cin = 1 ``k_vol`` whose map block would not fit a block's shared
+  memory): f32 FMAs on a 64 × 64 tile.
 
 ``gather_gemm`` is the port's entry point; ``run_plan`` launches a given
 plan, for ``conv_sweep.py`` and the card tests.
@@ -32,7 +40,7 @@ from typing import NamedTuple
 
 import torch
 
-from imfnet_tpu_torch.utils import cuda_build, launches
+from imfnet_tpu_torch.utils import cuda_build, launches, timer
 
 _DTYPES = (torch.bfloat16, torch.float32)
 
@@ -51,7 +59,8 @@ TC_TILES = frozenset({(TC_BM, 32, 32), (TC_BM, 64, 32), (TC_BM, 128, 32),
 SCALAR_TILE = (64, 64, 32)
 CIN1_BN = 32              # output channels of one pass of the cin = 1 variant
 CIN1_BMS = (128, 64, 32)  # its rows (threads) a block, the most that fit first
-_VARIANTS = {"scalar": 0, "tc": 1, "cin1": 2}
+WK_CHUNK = 128            # offsets of the map block the wide-K tile stages at a time
+_VARIANTS = {"scalar": 0, "tc": 1, "cin1": 2, "tcw": 3}
 
 
 class ConvPlan(NamedTuple):
@@ -78,6 +87,16 @@ def tc_smem_bytes(bn: int, bk: int, k_vol: int) -> int:
     return max(ring, partial) + (TC_BM * k_vol + k_vol + 1) * 4
 
 
+def tcw_smem_bytes(bn: int, bk: int) -> int:
+    """Shared memory of one wide-K tensor-core block (``TcwTile::SMEM_BYTES``
+    in ``csrc/sparse_conv.cu``): the ring or the split's partial tile, then
+    one ``[TC_BM, WK_CHUNK]`` map chunk (rows padded by one int), its live
+    flags and list, and three counters; the same at any ``k_vol``."""
+    ring = TC_STAGES * (TC_BM * (bk + 8) + bk * (bn + 8)) * 2
+    partial = TC_BM * (bn + 4) * 4
+    return max(ring, partial) + (TC_BM * (WK_CHUNK + 1) + 2 * WK_CHUNK + 4) * 4
+
+
 def cin1_smem_bytes(bm: int, k_vol: int) -> int:
     """Shared memory of one cin = 1 block (``cin1_smem_bytes`` in
     ``csrc/sparse_conv.cu``): the block's ``[bm, k_vol]`` map block, one
@@ -95,15 +114,18 @@ def conv_plan(n_out: int, cin: int, cout: int, k_vol: int, dtype: torch.dtype,
     16-byte aligned operands. Their tile is ``TC_BM`` rows by 32, 64 or 128
     channels (the least that holds ``cout``, else 128); a 128-wide tile
     steps 64 input channels where a row's product per offset is wide
-    (``cin · cout ≥ WIDE_MACS``), every other tile 32. Where the block's
-    shared memory (``tc_smem_bytes``, growing with ``k_vol``) passes
-    ``SMEM_LIMIT``, the step and then the tile narrow until it fits, and a
-    ``k_vol`` that fits no tile takes the scalar variant. The live offsets
+    (``cin · cout ≥ WIDE_MACS``), every other tile 32. The live offsets
     are split over the fewest blocks (a power of two, at most ``MAX_SPLIT``
     and ``k_vol``) that give ``TARGET_BLOCKS`` blocks and at most
     ``MAX_STEPS`` steps a block: dead tiles exit early, so the coarse
     levels need the split to keep the SMs busy, and a block's steps run one
-    after another.
+    after another. Where the block's shared memory (``tc_smem_bytes``,
+    growing with ``k_vol``) passes ``SMEM_LIMIT``, the step and then the
+    tile narrow until it fits; a ``k_vol`` that fits no tile (over 351)
+    takes the wide-K variant at the tile it started from, whose map block
+    is staged in chunks. Its split only fills ``TARGET_BLOCKS``, since a
+    tile walks its live offsets alone, a few of ``k_vol``, and every part
+    reads the whole map block.
 
     One input channel (bf16 or f32, any alignment) takes the cin = 1
     variant with the most rows a block (``CIN1_BMS``) whose shared memory
@@ -117,13 +139,14 @@ def conv_plan(n_out: int, cin: int, cout: int, k_vol: int, dtype: torch.dtype,
         return ConvPlan("scalar", *SCALAR_TILE, 1)
     bn = 32 if cout <= 32 else 64 if cout <= 64 else 128
     bk = 64 if bn == 128 and cin * cout >= WIDE_MACS else 32
+    wide = (bn, bk)
     while tc_smem_bytes(bn, bk, k_vol) > SMEM_LIMIT:
         if bk > 32:
             bk = 32
         elif bn > 32:
             bn //= 2
         else:
-            return ConvPlan("scalar", *SCALAR_TILE, 1)
+            return _wide_plan(n_out, cout, *wide)
     tiles = -(-n_out // TC_BM) * -(-cout // bn)
     steps = k_vol * -(-cin // bk)
     split = 1
@@ -131,6 +154,14 @@ def conv_plan(n_out: int, cin: int, cout: int, k_vol: int, dtype: torch.dtype,
            and 2 * split <= min(MAX_SPLIT, k_vol)):
         split *= 2
     return ConvPlan("tc", TC_BM, bn, bk, split)
+
+
+def _wide_plan(n_out: int, cout: int, bn: int, bk: int) -> ConvPlan:
+    tiles = -(-n_out // TC_BM) * -(-cout // bn)
+    split = 1
+    while tiles * split < TARGET_BLOCKS and 2 * split <= MAX_SPLIT:
+        split *= 2
+    return ConvPlan("tcw", TC_BM, bn, bk, split)
 
 
 def _check_plan(plan: ConvPlan, x: torch.Tensor, nbr: torch.Tensor,
@@ -144,11 +175,12 @@ def _check_plan(plan: ConvPlan, x: torch.Tensor, nbr: torch.Tensor,
             raise ValueError(f"gather_gemm: {plan} does not fit x {tuple(x.shape)}, "
                              f"nbr {tuple(nbr.shape)}, w {tuple(w.shape)}")
         return
-    if (plan.variant != "tc" or (plan.bm, plan.bn, plan.bk) not in TC_TILES
+    smem = (tcw_smem_bytes(plan.bn, plan.bk) if plan.variant == "tcw"
+            else tc_smem_bytes(plan.bn, plan.bk, nbr.shape[1]))
+    if (plan.variant not in ("tc", "tcw") or (plan.bm, plan.bn, plan.bk) not in TC_TILES
             or plan.split not in (1, 2, 4, 8) or plan.bm % plan.split
             or x.dtype != torch.bfloat16 or cin % 8 or cout % 8
-            or not _aligned(x, w)
-            or tc_smem_bytes(plan.bn, plan.bk, nbr.shape[1]) > SMEM_LIMIT):
+            or not _aligned(x, w) or smem > SMEM_LIMIT):
         raise ValueError(f"gather_gemm: {plan} does not fit bf16 x "
                          f"{tuple(x.shape)}, nbr {tuple(nbr.shape)}, "
                          f"w {tuple(w.shape)}")
@@ -215,12 +247,13 @@ def gather_gemm(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor) -> torch.Te
 
 
 def run_plan(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
-             plan: ConvPlan) -> torch.Tensor:
+             plan: ConvPlan, tally: bool = True) -> torch.Tensor:
     """Kernel A on CUDA tensors in the given plan, counted in
     ``gather_gemm.launches`` and the variant's ``launches_<variant>``. A
     plan that does not fit the call raises. The port calls it through
-    ``gather_gemm``; ``conv_sweep.py`` and the card tests call it with
-    plans of their own."""
+    ``gather_gemm``; ``conv_sweep.py``, ``chip_smoke.py`` and the card tests
+    call it with plans of their own. ``tally=False`` launches the wide-K
+    variant without its walk tally (to time what the tally costs)."""
     _check(x, nbr, w)
     _check_cuda(x)
     n_out, k = nbr.shape
@@ -230,14 +263,20 @@ def run_plan(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
         return out
     _check_plan(plan, x, nbr, w)
     lib = _library()
+    words = (torch.zeros((2,), dtype=torch.int64, device=x.device)
+             if plan.variant == "tcw" and tally else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.sparse_conv_gather_gemm(
             x.data_ptr(), nbr.data_ptr(), w.data_ptr(), out.data_ptr(),
             n_out, k, cin, cout, int(x.dtype == torch.bfloat16),
             _VARIANTS[plan.variant], plan.bm, plan.bn, plan.bk, plan.split,
-            stream)
-    cuda_build.check(rc, "sparse_conv_gather_gemm")
+            None if words is None else words.data_ptr(), stream)
+        cuda_build.check(rc, "sparse_conv_gather_gemm")
+        if words is not None:
+            timer.count_device({"conv.slots_walked": words[0:1],
+                                "conv.entries_live": words[1:2],
+                                "conv.map_slots": n_out * k})
     launches.count(gather_gemm)
     launches.count(gather_gemm, f"launches_{plan.variant}")
     return out
@@ -246,6 +285,7 @@ def run_plan(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
 gather_gemm.launches = 0
 gather_gemm.launches_tc = 0
 gather_gemm.launches_cin1 = 0
+gather_gemm.launches_tcw = 0
 gather_gemm.launches_scalar = 0
 
 
@@ -253,5 +293,5 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.load("sparse_conv")
     fn = lib.sparse_conv_gather_gemm
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 2
     return lib

@@ -1,17 +1,30 @@
 """Coordinate engine for the sparse-voxel representation.
 
-A sparse tensor is ``SparseVoxels(coords[N,4] int32, feats[N,C], num_valid)``
-with ``coords = (batch, x, y, z)`` in voxel units. Rows ``>= num_valid`` are
-padding: their coords are ``PAD_COORD`` and their feats are zero. Valid rows
-are kept sorted by key, i.e. lexicographic in (batch, x, y, z).
+A sparse tensor is ``SparseVoxels(coords[N,1+D] int32, feats[N,C], num_valid)``
+with ``coords = (batch, x, y, z)`` in voxel units (D = 3) or, for the 6-D
+correspondence tensors of ``eval.dgr``, ``(batch, u1, ..., u6)`` (D = 6).
+The dimension is read from the coordinates' width. Rows ``>= num_valid``
+are padding: their coords are ``PAD_COORD`` and their feats are zero. Valid
+rows are kept sorted by key, i.e. lexicographic in (batch, coordinates).
 
-A coordinate's key is one int64,
+A 3-D coordinate's key is one int64,
 
     key = ((batch << 16 | x + 2^15) << 32) | ((y + 2^15) << 16 | z + 2^15)
 
 the (hi, lo) uint32 pair of ``imfnet_tpu.sparse.coords.make_keys`` read as one
-number, so keys order rows exactly as the JAX package's keys do. Table
-padding gets ``PAD_TABLE_KEY`` (sorts last); padded queries get
+number, so keys order rows exactly as the JAX package's keys do. A 6-D key
+packs ``KEY6_BITS`` (10) bits an axis after a shift of 2^9 and the batch in
+the two bits above them, ``batch << 60 | Σ_a (u_a + 2^9) << 10 (5 - a)``:
+it orders rows lexicographically and tests membership exactly. A row is in
+range (``in_key_range``) with its batch in 0..3 and every axis within
+``KEY6_MARGIN`` (8, the largest offset of a 4-level pyramid's maps) of the
+10 bits' ends, [-504, 503], so that every query a map makes of it, the row
+plus an offset, is a field-wise sum that neither borrows nor carries: its
+key is the row's key plus the offset's (``offset_map6``). A 6-D row out of
+range is never aliased: a query gets ``PAD_QUERY_KEY`` (it misses, as no
+table row can lie there) and a table row ``PAD_TABLE_KEY`` (it drops out of
+the table), and ``out_of_range`` counts such rows for the caller to report.
+Table padding gets ``PAD_TABLE_KEY`` (sorts last); padded queries get
 ``PAD_QUERY_KEY``, which never equals a table key, so they always miss.
 """
 from __future__ import annotations
@@ -24,6 +37,10 @@ COORD_SHIFT = 1 << 15
 PAD_COORD = -(1 << 20)
 PAD_TABLE_KEY = (1 << 63) - 1
 PAD_QUERY_KEY = (1 << 63) - 2
+KEY6_BITS = 10                    # bits an axis of a 6-D key
+KEY6_SHIFT = 1 << (KEY6_BITS - 1)
+KEY6_BATCHES = 4                  # batches a 6-D key holds (two bits)
+KEY6_MARGIN = 8                   # room kept at each end of an axis for offsets
 
 
 class SparseVoxels(NamedTuple):
@@ -53,16 +70,55 @@ def row_mask(n_padded: int, num_valid: torch.Tensor) -> torch.Tensor:
     return torch.arange(n_padded, device=num_valid.device) < num_valid
 
 
+def coord_dim(coords: torch.Tensor) -> int:
+    """D of coordinates ``[N, 1 + D]``: 3 or 6."""
+    d = coords.shape[-1] - 1
+    if d not in (3, 6):
+        raise ValueError(f"coordinates must be (batch, 3 or 6 axes); got width {d + 1}")
+    return d
+
+
+def in_key_range(coords: torch.Tensor) -> torch.Tensor:
+    """bool[N]: rows whose key is exact, and so are the keys of every
+    query a map makes of them (a 6-D row within ``KEY6_SHIFT -
+    KEY6_MARGIN`` of the origin on every axis, batch in [0,
+    ``KEY6_BATCHES``)); every 3-D row (its keys keep the JAX package's
+    16-bit wrap)."""
+    if coord_dim(coords) == 3:
+        return torch.ones(coords.shape[0], dtype=torch.bool, device=coords.device)
+    c = coords.to(torch.int64)
+    u = c[:, 1:] + KEY6_SHIFT
+    return ((c[:, 0] >= 0) & (c[:, 0] < KEY6_BATCHES)
+            & ((u >= KEY6_MARGIN) & (u < (1 << KEY6_BITS) - KEY6_MARGIN)).all(dim=1))
+
+
+def out_of_range(coords: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """int64[]: valid rows whose key would not be exact (``in_key_range``)."""
+    return (valid & ~in_key_range(coords)).sum()
+
+
+def _keys6(c: torch.Tensor) -> torch.Tensor:
+    """The 6-D key of int64 coordinates [..., 7] that are in range."""
+    key = c[..., 0]
+    for a in range(1, 7):
+        key = (key << KEY6_BITS) | (c[..., a] + KEY6_SHIFT)
+    return key
+
+
 def make_keys(coords: torch.Tensor, valid: torch.Tensor, *,
               is_table: bool) -> torch.Tensor:
-    """int64 keys of int32 coords [N,4]; invalid rows get sentinels."""
+    """int64 keys of int32 coords [N,4] or [N,7]; invalid rows get
+    sentinels, and so do 6-D rows out of the key's range."""
+    pad = PAD_TABLE_KEY if is_table else PAD_QUERY_KEY
+    if coord_dim(coords) == 6:
+        key = _keys6(coords.to(torch.int64))
+        return torch.where(valid & in_key_range(coords), key, torch.full_like(key, pad))
     c = coords.to(torch.int64)
     b = c[:, 0]
     x = (c[:, 1] + COORD_SHIFT) & 0xFFFF
     y = (c[:, 2] + COORD_SHIFT) & 0xFFFF
     z = (c[:, 3] + COORD_SHIFT) & 0xFFFF
     key = (((b << 16) | x) << 32) | (y << 16) | z
-    pad = PAD_TABLE_KEY if is_table else PAD_QUERY_KEY
     return torch.where(valid, key, torch.full_like(key, pad))
 
 
@@ -93,7 +149,7 @@ def compact_first(first: torch.Tensor, order: torch.Tensor,
 def unique_voxels(coords: torch.Tensor, valid: torch.Tensor, n_out: int):
     """Deduplicate voxel coordinates, keeping the first occurrence per voxel.
 
-    Returns (unique_coords int32[n_out,4] sorted by key, sel int64[n_out]
+    Returns (unique_coords int32[n_out,1+D] sorted by key, sel int64[n_out]
     index of the first-occurring input row per voxel or -1, n_unique int32[]).
     """
     keys = make_keys(coords, valid, is_table=True)
@@ -144,7 +200,8 @@ def stride_coords(coords: torch.Tensor, valid: torch.Tensor, stride: int,
     """Output coordinates of a stride-``s`` downsampling conv: the unique set
     of ``floor(c / s) * s`` over valid inputs, sorted.
 
-    Returns (out_coords int32[n_out,4], n_out_valid int32[])."""
+    Every axis is strided, at any D. Returns (out_coords int32[n_out,1+D],
+    n_out_valid int32[])."""
     strided = torch.div(coords[:, 1:], stride, rounding_mode="floor") * stride
     c = torch.cat([coords[:, :1], strided], dim=1)
     uniq, _, n_unique = unique_voxels(c, valid, n_out)

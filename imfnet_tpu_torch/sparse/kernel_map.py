@@ -3,7 +3,9 @@
 A kernel map is a dense int32 table ``nbr[N_out, K]`` holding, for each output
 row and kernel offset, the input row or -1. Offsets enumerate in
 ``itertools.product`` order (dx slowest, dz fastest), radius
-``kernel_size // 2``, scaled by the level's tensor stride.
+``kernel_size // 2``, scaled by the level's tensor stride. The dimension D
+(3, or 6 for ``eval.dgr``'s correspondence tensors) is the coordinates'
+(``coords.coord_dim``): a 3-D k3 conv has 27 offsets, a 6-D one 3^6 = 729.
 
 This module holds the search builder (``imfnet_tpu.sparse.kernel_map
 .build_pyramid``): each level's table is the sorted unique set of strided
@@ -11,7 +13,7 @@ coordinates, and each map is a sort-free ``torch.searchsorted`` of the offset
 keys into the sorted source table. It needs no grid extent and is the
 default of ``train.step.make_pyramid_fn``. The packed-grid builder
 (``sparse.grid.build_pyramid_grid``) gives the same tables for in-extent
-inputs.
+3-D inputs; 6-D pyramids are built here alone.
 """
 from __future__ import annotations
 
@@ -21,7 +23,13 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from imfnet_tpu_torch.sparse.coords import lookup, make_keys, row_mask, stride_coords
+from imfnet_tpu_torch.sparse.coords import (KEY6_BITS, KEY6_MARGIN, PAD_QUERY_KEY,
+                                            coord_dim, lookup, make_keys, row_mask,
+                                            stride_coords)
+
+# query keys one chunk of a 6-D map holds at most (int64 each; the chunk's
+# temporaries are a few such tensors: about 40 bytes an entry, 0.7 GB)
+MAP_CHUNK_ENTRIES = 1 << 24
 
 
 def kernel_offsets(kernel_size: int, dilation: int = 1) -> np.ndarray:
@@ -33,13 +41,13 @@ def kernel_offsets(kernel_size: int, dilation: int = 1) -> np.ndarray:
     return offs * dilation
 
 
-def offsets_on(kernel_size: int, scale: int, device) -> torch.Tensor:
-    """int32[K,3]: ``kernel_offsets(kernel_size) * scale`` made on
-    ``device`` itself, with no copy from the host, which a CUDA graph
+def offsets_on(kernel_size: int, scale: int, device, dim: int = 3) -> torch.Tensor:
+    """int32[K,dim]: the ``dim``-D ``kernel_offsets(kernel_size) * scale`` made
+    on ``device`` itself, with no copy from the host, which a CUDA graph
     cannot hold."""
     r = kernel_size // 2
     g = torch.arange(-r, r + 1, dtype=torch.int32, device=device) * scale
-    return torch.stack(torch.meshgrid(g, g, g, indexing="ij"), dim=-1).reshape(-1, 3)
+    return torch.stack(torch.meshgrid(*[g] * dim, indexing="ij"), dim=-1).reshape(-1, dim)
 
 
 def offset_map(out_coords: torch.Tensor, out_valid: torch.Tensor,
@@ -47,7 +55,12 @@ def offset_map(out_coords: torch.Tensor, out_valid: torch.Tensor,
                offsets) -> torch.Tensor:
     """nbr[N_out, K]: the row of ``out + offset`` in the input table, or -1.
     The input table's valid rows must be sorted by key. ``offsets`` is an
-    int[K,3] array, or a tensor on the coordinates' device."""
+    int[K,D] array, or a tensor on the coordinates' device. 6-D maps are
+    built in chunks of offsets (``offset_map6``)."""
+    if coord_dim(out_coords) == 6:
+        return offset_map6(out_coords, out_valid, in_coords, in_valid,
+                           torch.as_tensor(offsets, dtype=torch.int32,
+                                           device=out_coords.device))
     table = make_keys(in_coords, in_valid, is_table=True)
     offs = torch.zeros((len(offsets), 4), dtype=torch.int32,
                        device=out_coords.device)
@@ -57,6 +70,35 @@ def offset_map(out_coords: torch.Tensor, out_valid: torch.Tensor,
     qv = out_valid[:, None].expand(-1, len(offsets)).reshape(-1)
     keys = make_keys(q, qv, is_table=False)
     return lookup(table, keys).reshape(out_coords.shape[0], len(offsets))
+
+
+def offset_map6(out_coords: torch.Tensor, out_valid: torch.Tensor,
+                in_coords: torch.Tensor, in_valid: torch.Tensor,
+                offsets: torch.Tensor) -> torch.Tensor:
+    """``offset_map`` of 6-D coordinates, in chunks of offsets. A query's
+    key is its row's key plus its offset's, ``Σ_a o_a << 10 (5 - a)``:
+    an offset of at most ``KEY6_MARGIN`` a axis moves an in-range row's
+    fields without a borrow or carry (``coords.in_key_range``), and a row
+    out of range or invalid keeps ``PAD_QUERY_KEY`` and misses. At most
+    ``MAP_CHUNK_ENTRIES`` query keys are held at a time: the temporaries
+    are about 40 bytes a chunk entry (the int64 keys, the search's int64
+    positions, masks), 0.7 GB at most, whatever K (729 at a k3 conv) and
+    N_out. The offsets must stay within ``KEY6_MARGIN`` a axis
+    (``build_pyramid`` checks its levels' strides)."""
+    n_out, k = out_coords.shape[0], offsets.shape[0]
+    table = make_keys(in_coords, in_valid, is_table=True)
+    rows = make_keys(out_coords, out_valid, is_table=False)[:, None]
+    miss = rows == PAD_QUERY_KEY
+    o = offsets.to(torch.int64)
+    delta = o[:, 0]
+    for a in range(1, 6):
+        delta = (delta << KEY6_BITS) + o[:, a]
+    nbr = torch.empty((n_out, k), dtype=torch.int32, device=out_coords.device)
+    chunk = max(1, min(k, MAP_CHUNK_ENTRIES // max(n_out, 1)))
+    for k0 in range(0, k, chunk):
+        key = torch.where(miss, rows, rows + delta[None, k0:k0 + chunk])
+        nbr[:, k0:k0 + chunk] = lookup(table, key)
+    return nbr
 
 
 def kernel_map_same(coords: torch.Tensor, valid: torch.Tensor, kernel_size: int,
@@ -90,11 +132,11 @@ def kernel_map_up(in_coords: torch.Tensor, in_valid: torch.Tensor,
 class LevelMaps(NamedTuple):
     """Kernel maps and coordinate metadata for one UNet resolution level."""
 
-    coords: torch.Tensor            # int32[N,4] sorted table at this level
+    coords: torch.Tensor            # int32[N,1+D] sorted table at this level
     num_valid: torch.Tensor         # int32[]
-    k3_same: torch.Tensor           # [N,27] stride-1 k3 map at this level
-    down: Optional[torch.Tensor]    # [N,27] gathers from the finer level
-    up: Optional[torch.Tensor]      # [N,27] gathers from the coarser level
+    k3_same: torch.Tensor           # [N,3^D] stride-1 k3 map at this level
+    down: Optional[torch.Tensor]    # [N,3^D] gathers from the finer level
+    up: Optional[torch.Tensor]      # [N,3^D] gathers from the coarser level
 
 
 class CoordinatePyramid(NamedTuple):
@@ -102,7 +144,7 @@ class CoordinatePyramid(NamedTuple):
     tensor stride 2**i."""
 
     levels: Tuple[LevelMaps, ...]
-    k5_l0: torch.Tensor  # [N0, conv1_kernel_size**3] conv1 kernel map
+    k5_l0: torch.Tensor  # [N0, conv1_kernel_size**D] conv1 kernel map
 
 
 def coarse_levels_fit(pyr: CoordinatePyramid) -> torch.Tensor:
@@ -123,10 +165,12 @@ def build_pyramid(
     conv1_kernel_size: int = 5,
     level_capacity: Tuple[int, ...] | None = None,
 ) -> CoordinatePyramid:
-    """The full UNet coordinate structure (4 levels, strides 1/2/4/8).
+    """The full UNet coordinate structure (4 levels, strides 1/2/4/8), in
+    the coordinates' dimension (3 or 6; every axis strided).
 
     ``level_capacity[i]`` is the padded row count of level i; a level keeps
-    the first ``capacity`` unique coordinates in scan order."""
+    the first ``capacity`` unique coordinates in scan order. A 6-D pyramid
+    whose conv1 is k3 shares level 0's k3 map as conv1's."""
     n0 = coords.shape[0]
     if level_capacity is None:
         level_capacity = tuple(max(256, n0 >> i) for i in range(num_levels))
@@ -139,23 +183,32 @@ def build_pyramid(
         prev_valid = row_mask(prev_coords.shape[0], prev_n)
         tables.append(stride_coords(prev_coords, prev_valid, 2 ** i,
                                     level_capacity[i]))
+    dim = coord_dim(coords)
+    if dim == 6 and 2 ** (num_levels - 1) > KEY6_MARGIN:
+        raise ValueError(f"build_pyramid: a 6-D pyramid's offsets stay within "
+                         f"{KEY6_MARGIN} a axis: at most 4 levels, got {num_levels}")
     valid = [row_mask(c.shape[0], n) for c, n in tables]
     dev = coords.device
+
+    def offs(k, s):
+        return offsets_on(k, s, dev, dim)
 
     levels = []
     for i in range(num_levels):
         c, n = tables[i]
         t = 2 ** i
-        same = offset_map(c, valid[i], c, valid[i], offsets_on(3, t, dev))
+        same = offset_map(c, valid[i], c, valid[i], offs(3, t))
         down = None
         if i > 0:
             down = offset_map(c, valid[i], tables[i - 1][0], valid[i - 1],
-                              offsets_on(3, 2 ** (i - 1), dev))
+                              offs(3, 2 ** (i - 1)))
         up = None
         if i < num_levels - 1:
-            up = offset_map(c, valid[i], tables[i + 1][0], valid[i + 1], offsets_on(3, t, dev))
+            up = offset_map(c, valid[i], tables[i + 1][0], valid[i + 1], offs(3, t))
         levels.append(LevelMaps(c, n, same, down, up))
 
     c0 = tables[0][0]
-    k5 = offset_map(c0, valid[0], c0, valid[0], offsets_on(conv1_kernel_size, 1, dev))
+    if dim == 6 and conv1_kernel_size == 3:
+        return CoordinatePyramid(tuple(levels), levels[0].k3_same)
+    k5 = offset_map(c0, valid[0], c0, valid[0], offs(conv1_kernel_size, 1))
     return CoordinatePyramid(tuple(levels), k5)

@@ -77,9 +77,10 @@ def level_capacities(
 
 def make_pyramid_fn(config: Config, n_pad: int, num_batches: int = 2,
                     extent: Tuple[int, int, int] | None = None,
-                    map_impl: str = "search"):
+                    map_impl: str = "search", dim: int = 3):
     """fn(coords, num_valid) → CoordinatePyramid at this config's level
-    capacities.
+    capacities, for coordinates of dimension ``dim`` (3, or 6: the search
+    builder alone).
 
     ``map_impl`` picks the builder; all give the same tables for
     in-extent inputs:
@@ -96,6 +97,11 @@ def make_pyramid_fn(config: Config, n_pad: int, num_batches: int = 2,
     if map_impl not in MAP_IMPLS:
         raise ValueError(f"make_pyramid_fn: map_impl must be one of {MAP_IMPLS}, "
                          f"got {map_impl!r}")
+    if dim not in (3, 6):
+        raise ValueError(f"make_pyramid_fn: dim must be 3 or 6, got {dim}")
+    if dim == 6 and map_impl != "search":
+        raise ValueError(f"make_pyramid_fn: the packed-grid builders are 3-D; a 6-D "
+                         f"pyramid takes map_impl='search', not {map_impl!r}")
     caps = level_capacities(n_pad, tuple(config.level_capacity_divisors))
     if map_impl == "search":
         def fn(coords, n):

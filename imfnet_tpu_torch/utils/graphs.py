@@ -72,7 +72,7 @@ def kernel_counters() -> Tuple[launches.Counter, ...]:
     return ((gather_gemm, "launches"), (gather_gemm, "launches_tc"),
             (gather_gemm, "launches_cin1"), (gather_gemm, "launches_scalar"),
             (flash_nn, "launches"), (sorted_compact, "launches"),
-            (word_match_many, "launches"))
+            (word_match_many, "launches"), (gather_gemm, "launches_tcw"))
 
 
 def _read_counters() -> Tuple[int, ...]:

@@ -11,7 +11,7 @@ from imfnet_tpu_torch.sparse.conv_kernel import (CIN1_BMS, CIN1_BN, MAX_SPLIT, M
                                                  SMEM_LIMIT, TARGET_BLOCKS, TC_TILES,
                                                  WIDE_MACS, ConvPlan, cin1_smem_bytes,
                                                  conv_plan, gather_gemm, gather_gemm_plain,
-                                                 run_plan, tc_smem_bytes)
+                                                 run_plan, tc_smem_bytes, tcw_smem_bytes)
 from imfnet_tpu_torch.train.step import level_capacities
 from imfnet_tpu_torch.utils import cuda_build
 
@@ -87,7 +87,8 @@ def test_cin1_variant(dtype, k_vol, aligned, cout):
     assert plan.blocks(65536, CIN1_BN) == 65536 // plan.bm
 
 
-# (k_vol, cin, cout) -> the tile (bn, bk) that fits, or None for scalar
+# (k_vol, cin, cout) -> the tile (bn, bk) that fits, or None where none
+# does and the wide-K variant takes the call at its first tile
 WIDE_K = [(125, 256, 256, (128, 64)), (125, 32, 32, (32, 32)),
           (172, 256, 256, (128, 64)), (173, 256, 256, (128, 32)),
           (343, 256, 256, (32, 32)), (343, 64, 64, (32, 32)),
@@ -97,11 +98,15 @@ WIDE_K = [(125, 256, 256, (128, 64)), (125, 32, 32, (32, 32)),
 @pytest.mark.parametrize("k_vol,cin,cout,tile", WIDE_K)
 def test_plan_fits_shared_memory(k_vol, cin, cout, tile):
     """The map block grows with k_vol: the step, then the tile narrow until
-    the block fits the H100's shared memory, else the scalar variant."""
+    the block fits the H100's shared memory, else the wide-K tensor-core
+    variant (its map block staged in chunks) at the first tile."""
     plan = conv_plan(4096, cin, cout, k_vol, torch.bfloat16)
     if tile is None:
-        assert plan == ConvPlan("scalar", 64, 64, 32, 1)
+        first = (32 if cout <= 32 else 64 if cout <= 64 else 128,
+                 64 if cout > 64 and cin * cout >= WIDE_MACS else 32)
+        assert plan.variant == "tcw" and (plan.bn, plan.bk) == first
         assert tc_smem_bytes(32, 32, k_vol) > SMEM_LIMIT
+        assert tcw_smem_bytes(plan.bn, plan.bk) <= SMEM_LIMIT
         return
     assert plan.variant == "tc" and (plan.bn, plan.bk) == tile
     assert (plan.bm, plan.bn, plan.bk) in TC_TILES
