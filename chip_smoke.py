@@ -63,8 +63,14 @@ Phases, each printed as one JSON line:
             network (729 offsets, tcw asserted) and at conv1 (cin 1, k 729,
             cin1 asserted) against the plain version over blocks of rows
             (1e-4 of the output's scale; dead rows 0, two calls bit-equal):
-            graph-timed ms, tcw's ms without its walk tally, and the
-            roofline bound from the map's live entries and bytes
+            graph-timed ms, tcw's ms without its walk tally and of its list
+            build alone (the walk the rest), its tally against a count on
+            the host (slots and live entries; the entries that waited on
+            their row's order), the map's live entries a row, and the
+            roofline bound from the map's live entries and bytes; last,
+            the 20 tcw convs of a pair in network order in one graph (each
+            residual block's two sharing one list build), with the tally
+            and without, in turns, and with no list build shared
   reference the chain on a small pair, on the card vs on the CPU (the
             plain versions, which the CPU tests hold to the JAX package),
             in f32 for the default and the packed-grid path (equal tables,
@@ -321,6 +327,7 @@ these included) and, last, {"ok": true, "device": {...}}.
 Any failure raises and exits non-zero; so does a machine without CUDA.
 """
 import argparse
+import contextlib
 import glob
 import json
 import multiprocessing
@@ -359,7 +366,8 @@ from imfnet_tpu_torch.parallel.mesh import close_mesh, make_mesh, mesh_backend, 
 from imfnet_tpu_torch.pipeline import (HYPO_BLOCK, N_PAD_MAX, PairRegistrar, bench_config,
                                        init_model)
 from imfnet_tpu_torch.sparse.conv_kernel import (SCALAR_TILE, TC_TILES, ConvPlan, conv_plan,
-                                                 gather_gemm, gather_gemm_plain)
+                                                 gather_gemm, gather_gemm_plain, shared_lists,
+                                                 tcw_lists, tcw_tally_plain)
 from imfnet_tpu_torch.sparse.conv_kernel import run_plan as conv_run_plan
 from imfnet_tpu_torch.sparse.grid import (GridSpec, cell_keys, compact_words, level_tables,
                                           quantize_grid, word_queries)
@@ -383,7 +391,7 @@ from imfnet_tpu_torch.train.step import (PairBatch, compute_correspondences, for
 from imfnet_tpu_torch.train.trainer import (STAGING_SLOTS, Trainer, batch_to_device,
                                             build_model_from_config)
 from imfnet_tpu_torch.train.validate import make_graphed_val_step, make_val_step
-from imfnet_tpu_torch.utils import cuda_build
+from imfnet_tpu_torch.utils import cuda_build, timer
 from imfnet_tpu_torch.utils.graphs import jit
 
 
@@ -4242,8 +4250,10 @@ def plain_blocked(x, nbr, w):
 def dgr_conv_entry(name, x, nbr, w, plan):
     """Kernel A at one DGR conv against the plain version: the plan and
     variant counter, the error over the output's scale, dead rows exactly 0,
-    two calls bit-equal; graph-timed ms, with the wide-K walk tally and
-    without it, and the roofline bound from the inputs."""
+    two calls bit-equal; for the wide-K walk its tally against the host's
+    count of the map and the map's live entries a row; graph-timed ms (the
+    walk with its tally and without it, and its list build alone), and the
+    roofline bound from the inputs."""
     n_out, k = nbr.shape
     n_in, cin, cout = x.shape[0], w.shape[1], w.shape[2]
     attr = f"launches_{plan.variant}"
@@ -4277,13 +4287,33 @@ def dgr_conv_entry(name, x, nbr, w, plan):
     if plan.variant != "tcw":
         entry["ms"] = graph_ms(lambda: gather_gemm(x, nbr, w), 5)
         return entry
+    # the tally against the host's count of the map
+    timer.reset()
+    with timer.tracing():
+        gather_gemm(x, nbr, w)
+        tally = timer.record()["counters"]
+    timer.reset()
+    want = tcw_tally_plain(nbr)
+    if any(tally.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"dgr: {name}'s walk tally {tally} is not the map's {want}")
+    live_row = (nbr >= 0).sum(dim=1)
+    valid = live_row[live_row > 0].float()
+    entry.update({"slots_walked": tally["conv.slots_walked"],
+                  "entries_waited": tally.get("conv.entries_waited", 0),
+                  "walk_share": nnz / max(1, tally["conv.slots_walked"]),
+                  "rows_live": int(valid.numel()),
+                  "row_live_mean": float(valid.mean()) if valid.numel() else 0.0,
+                  "row_live_p99": float(valid.quantile(0.99)) if valid.numel() else 0.0,
+                  "row_live_max": int(live_row.max())})
     # the walk tally on and off in turn, three times each, so that a drift
-    # of the card's clock falls on both; the medians
+    # of the card's clock falls on both; the medians; the list build alone
     on, off = [], []
     for _ in range(3):
         on.append(graph_ms(lambda: gather_gemm(x, nbr, w), 5))
         off.append(graph_ms(lambda: conv_run_plan(x, nbr, w, plan, tally=False), 5))
     entry["ms"], entry["ms_without_tally"] = float(np.median(on)), float(np.median(off))
+    entry["lists_ms"] = graph_ms(lambda: tcw_lists(nbr, cout, ob=plan.split), 5)
+    entry["walk_ms"] = entry["ms"] - entry["lists_ms"]
     return entry
 
 
@@ -4312,7 +4342,7 @@ def phase_dgr(gen):
     sv, pyr = seen[-1][0], seen[-1][1]  # the capture's buffers, as the last replay left them
     levels = [int(lv.num_valid) for lv in pyr.levels]
     del reg, seen
-    entries, done = [], {}
+    entries, done, inputs = [], {}, {}
     for name, level, which, cin, cout in MAIN_PATH_CONVS:
         key = (level, which, cin, cout)
         if key in done:
@@ -4330,6 +4360,31 @@ def phase_dgr(gen):
         done[key] = dgr_conv_entry(name, x, nbr, w, plan)
         done[key]["count"] = 1
         entries.append(done[key])
+        inputs[key] = (x, nbr, w)
+    # the 20 convs of a pair in network order, one graph, each residual
+    # block's two convs sharing one list build as the network runs them:
+    # tally on and off in turns, three times each; then every conv building
+    # its own lists
+    names = [n for n, *_ in MAIN_PATH_CONVS]
+    calls = [inputs[(lv, wh, ci, co)] for _, lv, wh, ci, co in MAIN_PATH_CONVS]
+    pair_plans = [conv_plan(n.shape[0], w_.shape[1], w_.shape[2], DGR_K, x_.dtype)
+                  for x_, n, w_ in calls]
+
+    def pair(tally=True, share=True):
+        i = 0
+        while i < len(calls):
+            two = share and i + 1 < len(calls) and names[i + 1] == names[i]
+            with shared_lists() if two else contextlib.nullcontext():
+                for j in range(i, i + 1 + two):
+                    conv_run_plan(*calls[j], pair_plans[j], tally=tally)
+            i += 1 + two
+
+    pair_on, pair_off = [], []
+    for _ in range(3):
+        pair_on.append(graph_ms(pair, 2))
+        pair_off.append(graph_ms(lambda: pair(tally=False), 2))
+    pair_unshared = graph_ms(lambda: pair(share=False), 2)
+    del calls, inputs
     nbr = pyr.levels[0].k3_same
     x = torch.randn((nbr.shape[0], 1), generator=gen, device="cuda").to(torch.bfloat16)
     w = torch.randn((DGR_K, 1, 32), generator=gen, device="cuda").to(torch.bfloat16)
@@ -4345,8 +4400,16 @@ def phase_dgr(gen):
                                            for v in ("tc", "cin1", "scalar", "tcw")},
                "dgr_max_rel_err": max(e["max_rel_err"] for e in entries + [conv1]),
                "dgr_tcw_ms": total("ms"), "dgr_tcw_ms_without_tally": total("ms_without_tally"),
+               "dgr_tcw_lists_ms": total("lists_ms"), "dgr_tcw_walk_ms": total("walk_ms"),
+               "dgr_tcw_pair_ms": float(np.median(pair_on)),
+               "dgr_tcw_pair_ms_without_tally": float(np.median(pair_off)),
+               "dgr_tcw_pair_ms_turns": [pair_on, pair_off],
+               "dgr_tcw_pair_ms_unshared": pair_unshared,
                "dgr_tcw_bound_ms": total("bound_ms"),
                "dgr_tcw_roofline_share": total("bound_ms") / total("ms"),
+               "dgr_tcw_walk_share": total("nnz") / total("slots_walked"),
+               "dgr_tcw_entries_waited": total("entries_waited"),
+               "dgr_tcw_entries_live": total("nnz"),
                "dgr_conv1_ms": conv1["ms"], "dgr_conv1_bound_ms": conv1["bound_ms"],
                "dgr_conv1_tile": [plan.bm, plan.bn]}
     emit({"phase": "dgr", "voxels": DGR_VOXELS, "rows_valid": levels,

@@ -3,6 +3,7 @@
 one GPU.
 
     python3 conv_sweep.py        # needs one card
+    python3 conv_sweep.py --dgr  # the wide-K walk at DGR's 6-D convs
 
 Builds ``csrc/sparse_conv.cu`` (prints the compiler's register and spill
 report), builds the bench-scale pair's pyramid as ``chip_smoke.py`` does,
@@ -13,16 +14,25 @@ max|ref|, dead rows exactly 0, two calls bit-equal) and timed with CUDA
 events over CUDA-graph replays (no host time between launches). One JSON
 line per shape, with every result, the plan ``conv_plan`` takes and the
 fastest. ``conv_plan``'s rule is chosen from these tables.
+
+``--dgr`` does the same for the wide-K walk on a KITTI-sized DGR pair's own
+6-D pyramid (``chip_smoke.dgr_pair``, 729 offsets): at each distinct conv of
+the network, the plan's ms against its roofline bound (bytes: the map once,
+the rows it names, the live weight offsets, the output), the list build
+alone and the walk, then every output tile and pass size of the walk, each
+bit-equal to the plan's output, which is held to the plain version.
 """
 import sys
 from collections import Counter
 
 import torch
 
-from chip_smoke import (CONV_TOL_REL, MAIN_PATH_CONVS, bench_pair, conv_inputs,
-                        emit, graph_ms, phase_device)
+from chip_smoke import (CONV_TOL_REL, DGR_K, MAIN_PATH_CONVS, bench_pair, conv_inputs,
+                        dgr_conv_entry, dgr_pair, emit, graph_ms, phase_device)
+from imfnet_tpu_torch.config import dgr_kitti_config
+from imfnet_tpu_torch.eval.dgr import DGRRegistrar
 from imfnet_tpu_torch.pipeline import PairRegistrar
-from imfnet_tpu_torch.sparse.conv_kernel import (TC_TILES, ConvPlan, conv_plan,
+from imfnet_tpu_torch.sparse.conv_kernel import (TC_TILES, TCW_BNS, ConvPlan, conv_plan,
                                                  gather_gemm_plain, run_plan)
 from imfnet_tpu_torch.utils import cuda_build
 
@@ -37,6 +47,54 @@ def check(x, nbr, w, plan, ref, tol):
     return ok, err
 
 
+def sweep_dgr():
+    """The wide-K walk at each distinct 6-D conv of DGR's network."""
+    reg = DGRRegistrar(dgr_kitti_config(), device="cuda", seed=0)
+    seen = []
+    reg.model.register_forward_hook(lambda mod, inputs, out: seen.append(inputs))
+    reg(*dgr_pair())
+    pyr = seen[-1][1]
+    del reg, seen
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    calls = Counter((lv, wh, ci, co) for _, lv, wh, ci, co in MAIN_PATH_CONVS)
+    rows, seen, failed = [], set(), []
+    for name, level, which, cin, cout in MAIN_PATH_CONVS:
+        key = (level, which, cin, cout)
+        if key in seen:
+            continue
+        seen.add(key)
+        src = {"k3_same": level, "down": level - 1, "up": level + 1}[which]
+        nbr = getattr(pyr.levels[level], which)
+        x = torch.randn((pyr.levels[src].coords.shape[0], cin), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        w = (torch.randn((DGR_K, cin, cout), generator=gen, device="cuda")
+             * (DGR_K * cin) ** -0.5).to(torch.bfloat16)
+        plan = conv_plan(nbr.shape[0], cin, cout, DGR_K, x.dtype)
+        entry = dgr_conv_entry(name, x, nbr, w, plan)   # held to the plain version
+        want = run_plan(x, nbr, w, plan)
+        results = []
+        for bn in TCW_BNS:
+            for ob in sorted({plan.split, DGR_K, -(-DGR_K // 2), -(-DGR_K // 4)}):
+                p = plan._replace(bn=bn, split=ob)
+                ok = torch.equal(run_plan(x, nbr, w, p), want)
+                if not ok:
+                    failed.append((name, p))
+                results.append({"plan": list(p), "ok": ok,
+                                "ms": graph_ms(lambda: run_plan(x, nbr, w, p), 5)})
+        best = min(results, key=lambda r: r["ms"])
+        entry.update({"phase": "sweep_dgr", "calls": calls[key], "plan": list(plan),
+                      "best": best["plan"], "best_ms": best["ms"], "results": results})
+        emit(entry)
+        rows.append(entry)
+    emit({"phase": "summary_dgr",
+          "plan_ms_per_pair": sum(r["ms"] * r["calls"] for r in rows),
+          "best_ms_per_pair": sum(r["best_ms"] * r["calls"] for r in rows),
+          "bound_ms_per_pair": sum(r["bound_ms"] * r["calls"] for r in rows),
+          "lists_ms_per_pair": sum(r["lists_ms"] * r["calls"] for r in rows),
+          "failed": [[n, list(p)] for n, p in failed]})
+    return 1 if failed else 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("conv_sweep: needs an NVIDIA GPU", file=sys.stderr)
@@ -45,6 +103,8 @@ def main():
     phase_device()
     report = cuda_build.build(["sparse_conv"])
     emit({"phase": "build", "ptxas": report["sparse_conv"]["ptxas"].splitlines()})
+    if "--dgr" in sys.argv[1:]:
+        return sweep_dgr()
 
     reg = PairRegistrar()
     pair = bench_pair(reg.config)

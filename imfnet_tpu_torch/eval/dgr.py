@@ -20,7 +20,8 @@ it runs, in one CUDA graph on the card (``utils.graphs.jit``):
    offsets a k3 map, conv1 k3 sharing level 0's map);
 4. ``dgr.inlier``: ``ResUNetBN2C`` at D = 6 with one output logit and no
    feature normalization, its 20 k3 convs through kernel A's wide-K
-   variant, conv1 through its cin = 1 variant;
+   walk (a residual block's two convs sharing one list build), conv1
+   through its cin = 1 variant;
 5. ``dgr.procrustes``: ``w = sigmoid(logit)``, set to 0 below
    ``clip_weight_thresh``, then ``match.procrustes.kabsch_umeyama`` with
    those weights.
@@ -34,8 +35,9 @@ work before the graph (both scans padded, pinned and copied to the card),
 the graph's stages are the five above and
 its device counters ``dgr.corr_valid`` (correspondences) and ``dgr.rows_valid.
 <level>`` (the pyramid's valid rows a level); kernel A's wide-K launches
-add ``conv.slots_walked``, ``conv.entries_live`` and ``conv.map_slots``
-(the live entries of the 6-D maps they read, over N × 729 a map).
+add ``conv.slots_walked``, ``conv.entries_live``, ``conv.entries_waited``
+and ``conv.map_slots`` (the live entries of the 6-D maps they read, over
+the rows their products cover and over N × 729 a map; ``sparse.conv_kernel``).
 """
 from __future__ import annotations
 

@@ -24,6 +24,7 @@ from imfnet_tpu_torch.models.fusion import (AttentionFusion, gather_from_padded,
                                             scatter_to_padded)
 from imfnet_tpu_torch.models.layers import SparseBasicBlock, SparseConv, SparseNorm
 from imfnet_tpu_torch.models.resnet import ResNetTrunk
+from imfnet_tpu_torch.sparse.conv_kernel import shared_lists
 from imfnet_tpu_torch.sparse.coords import SparseVoxels, batch_segments, row_mask
 from imfnet_tpu_torch.sparse.kernel_map import CoordinatePyramid
 from imfnet_tpu_torch.sparse.ops import sparse_cat
@@ -125,8 +126,10 @@ class ResUNetIMF(nn.Module):
             return module(x, masks[i], bids[i], num_batches, lv[i].num_valid)
 
         def block(module, x, i):
-            return module(x, lv[i].k3_same, masks[i], bids[i], num_batches,
-                          lv[i].num_valid)
+            # its two convs read one map: a wide-K map's lists are built once
+            with shared_lists():
+                return module(x, lv[i].k3_same, masks[i], bids[i], num_batches,
+                              lv[i].num_valid)
 
         # ---- encoder (model/resunet.py:168-186) ----
         # each conv's nbr_inv: k5_l0 itself, a down map's sibling up map of

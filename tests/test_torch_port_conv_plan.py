@@ -8,8 +8,9 @@ import torch
 
 from chip_smoke import MAIN_PATH_CONVS
 from imfnet_tpu_torch.sparse.conv_kernel import (CIN1_BMS, CIN1_BN, MAX_SPLIT, MAX_STEPS,
-                                                 SMEM_LIMIT, TARGET_BLOCKS, TC_TILES,
-                                                 WIDE_MACS, ConvPlan, cin1_smem_bytes,
+                                                 SMEM_LIMIT, TARGET_BLOCKS, TC_TILES, TCW_BK,
+                                                 TCW_BM, TCW_BNS, TCW_L2_BYTES, WIDE_MACS, ConvPlan,
+                                                 cin1_smem_bytes,
                                                  conv_plan, gather_gemm, gather_gemm_plain,
                                                  run_plan, tc_smem_bytes, tcw_smem_bytes)
 from imfnet_tpu_torch.train.step import level_capacities
@@ -88,7 +89,7 @@ def test_cin1_variant(dtype, k_vol, aligned, cout):
 
 
 # (k_vol, cin, cout) -> the tile (bn, bk) that fits, or None where none
-# does and the wide-K variant takes the call at its first tile
+# does and the wide-K walk takes the call
 WIDE_K = [(125, 256, 256, (128, 64)), (125, 32, 32, (32, 32)),
           (172, 256, 256, (128, 64)), (173, 256, 256, (128, 32)),
           (343, 256, 256, (32, 32)), (343, 64, 64, (32, 32)),
@@ -98,15 +99,20 @@ WIDE_K = [(125, 256, 256, (128, 64)), (125, 32, 32, (32, 32)),
 @pytest.mark.parametrize("k_vol,cin,cout,tile", WIDE_K)
 def test_plan_fits_shared_memory(k_vol, cin, cout, tile):
     """The map block grows with k_vol: the step, then the tile narrow until
-    the block fits the H100's shared memory, else the wide-K tensor-core
-    variant (its map block staged in chunks) at the first tile."""
+    the block fits the H100's shared memory, else the wide-K walk (lists of
+    live entries per offset, chunks of TCW_BM entries) with the least
+    output-channel tile that holds cout."""
     plan = conv_plan(4096, cin, cout, k_vol, torch.bfloat16)
     if tile is None:
-        first = (32 if cout <= 32 else 64 if cout <= 64 else 128,
-                 64 if cout > 64 and cin * cout >= WIDE_MACS else 32)
-        assert plan.variant == "tcw" and (plan.bn, plan.bk) == first
+        bn = next(b for b in TCW_BNS if cout <= b)
+        assert plan[:4] == ("tcw", TCW_BM, bn, TCW_BK)
+        # offsets a pass: the fewest equal passes whose W slices fit L2
+        slice_bytes, passes = cin * cout * 2, -(-k_vol // plan.split)
+        assert plan.split * slice_bytes <= TCW_L2_BYTES
+        if passes > 1:
+            assert -(-k_vol // (passes - 1)) * slice_bytes > TCW_L2_BYTES
         assert tc_smem_bytes(32, 32, k_vol) > SMEM_LIMIT
-        assert tcw_smem_bytes(plan.bn, plan.bk) <= SMEM_LIMIT
+        assert tcw_smem_bytes(plan.bn) <= SMEM_LIMIT
         return
     assert plan.variant == "tc" and (plan.bn, plan.bk) == tile
     assert (plan.bm, plan.bn, plan.bk) in TC_TILES

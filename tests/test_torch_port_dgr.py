@@ -21,7 +21,7 @@ from imfnet_tpu_torch.eval.dgr import DGRRegistrar
 from imfnet_tpu_torch.models.resunet import ResUNetIMF
 from imfnet_tpu_torch.sparse import coords as C
 from imfnet_tpu_torch.sparse import kernel_map as KM
-from imfnet_tpu_torch.sparse.conv_kernel import conv_plan
+from imfnet_tpu_torch.sparse.conv_kernel import TCW_L2_BYTES, conv_plan
 from imfnet_tpu_torch.train.step import make_pyramid_fn
 
 BENCH = Path(__file__).resolve().parents[1] / "benchmark"
@@ -220,7 +220,11 @@ def test_the_packed_grid_builders_stay_3d():
 def test_plan_at_729_offsets_takes_tensor_cores(cin, cout):
     for n_out in (128, 65536, 131072):
         plan = conv_plan(n_out, cin, cout, 3 ** 6, torch.bfloat16)
-        assert plan.variant == "tcw" and plan.bm == 128
+        assert plan.variant == "tcw" and (plan.bm, plan.bk) == (64, 32)
+        w_bytes = 3 ** 6 * cin * cout * 2        # offsets a pass: W's slices fit L2
+        assert plan.split == (3 ** 6 if w_bytes <= TCW_L2_BYTES
+                              else -(-3 ** 6 // -(-w_bytes // TCW_L2_BYTES)))
+        assert plan.bn == min(b for b in (32, 64, 128, 256) if b >= cout)
     assert conv_plan(131072, 1, 32, 3 ** 6, torch.bfloat16) == ("cin1", 32, 32, 1, 1)
 
 
