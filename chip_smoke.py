@@ -89,12 +89,11 @@ Phases, each printed as one JSON line:
             calls eagerly (equal), the pose within 1e-3, a replay's launches
             (A 20, B 2), pairs/s and median both ways in blocks (eager,
             graphed, graphed, eager)
-  builders  every pyramid builder ("search", "packed", "banded", "ywide",
-            "transpose") on the bench-scale pair through PairRegistrar with
-            kernel C's quantize: tables bit for bit equal to the search
-            builder's, launches per pair (A 20, B 2, C 1, D 1 for "banded"
-            alone), and, interleaved round by round, pyramid ms on one
-            quantized pair and pair latency
+  builders  both pyramid builders ("search", "banded") on the bench-scale
+            pair through PairRegistrar with kernel C's quantize: tables bit
+            for bit equal to the search builder's, launches per pair (A 20,
+            B 2, C 1, D 1 for "banded" alone), and, interleaved round by
+            round, pyramid ms on one quantized pair and pair latency
   profile   torch.profiler over three pairs: device-busy ms per pair, the
             device's idle share against the unprofiled wall time, kernel
             launches per pair, the top kernels by device time, and the
@@ -3329,7 +3328,7 @@ SHARED_CARD = ["cuda:0", "cuda:0"]   # two ranks on the one card, over gloo
 DP_TRAINER_RUN = dict(synthetic_length=8, synthetic_n_points=50_000, val_max_iter=1)
 # fault 4's run: 4 batches of 2 pairs, 2 steps a rank, rank 1 rejecting a pair
 REJECTING_RUN = dict(synthetic_length=8, synthetic_n_points=50_000, max_epoch=1)
-BUILDERS = ("search", "packed", "banded", "ywide", "transpose")
+BUILDERS = ("search", "banded")
 BUILDER_ROUNDS = 5
 
 
@@ -3727,7 +3726,7 @@ def phase_ranks(cfg, ctx):
 
 
 def phase_builders(pair, rounds=BUILDER_ROUNDS):
-    """Every pyramid builder on the bench-scale pair, each through a
+    """Both pyramid builders on the bench-scale pair, each through a
     PairRegistrar with kernel C's quantize (the same weights): tables bit
     for bit equal to the search builder's, launches per pair (A 20, B 2,
     C 1, and D 1 for "banded" alone), and, interleaved round by round, the

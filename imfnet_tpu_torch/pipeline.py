@@ -37,9 +37,9 @@ from imfnet_tpu_torch.eval.registration import (make_keypoint_registration,
 from imfnet_tpu_torch.match.ransac import sample_shape
 from imfnet_tpu_torch.models import load_model
 from imfnet_tpu_torch.sparse.coords import SparseVoxels
-from imfnet_tpu_torch.sparse.grid import GridSpec, quantize_grid
+from imfnet_tpu_torch.sparse.grid import COMPACT_IMPLS, GridSpec, quantize_grid
 from imfnet_tpu_torch.sparse.kernel_map import CoordinatePyramid, coarse_levels_fit
-from imfnet_tpu_torch.train.step import make_pyramid_fn
+from imfnet_tpu_torch.train.step import MAP_IMPLS, make_pyramid_fn
 from imfnet_tpu_torch.utils import timer
 from imfnet_tpu_torch.utils.device import resolve_device
 from imfnet_tpu_torch.utils.graphs import jit
@@ -94,15 +94,21 @@ class PairRegistrar:
     from ``utils.flax_weights.state_dict_from_flax``) replaces the seeded
     random weights. ``compact_impl`` ("auto" or "kernel") goes to
     ``quantize_grid`` and ``map_impl`` ("search" or "banded") to
-    ``make_pyramid_fn``; the packed-grid path is
-    ``compact_impl="kernel", map_impl="banded"``, and every choice gives the
-    same voxels and kernel maps. ``graphed`` (on the card) replays the
-    stages after quantize as one CUDA graph per bucket; ``self.graphed`` is
-    then its ``utils.graphs.Graphed``, else None."""
+    ``make_pyramid_fn``, and any other value raises ``ValueError`` here; the
+    packed-grid path is ``compact_impl="kernel", map_impl="banded"``, and
+    every choice gives the same voxels and kernel maps. ``graphed`` (on the
+    card) replays the stages after quantize as one CUDA graph per bucket;
+    ``self.graphed`` is then its ``utils.graphs.Graphed``, else None."""
 
     def __init__(self, config: Optional[Config] = None, *, device=None,
                  state_dict=None, seed: int = 0, compact_impl: str = "auto",
                  map_impl: str = "search", graphed: bool = True):
+        if compact_impl not in COMPACT_IMPLS:
+            raise ValueError(f"PairRegistrar: compact_impl must be one of "
+                             f"{COMPACT_IMPLS}, got {compact_impl!r}")
+        if map_impl not in MAP_IMPLS:
+            raise ValueError(f"PairRegistrar: map_impl must be one of {MAP_IMPLS}, "
+                             f"got {map_impl!r}")
         self.device = resolve_device(device)
         self.graphed = (jit(self.chain, clone=True) if graphed and self.device.type == "cuda"
                         else None)

@@ -11,9 +11,9 @@ This module holds the search builder (``imfnet_tpu.sparse.kernel_map
 .build_pyramid``): each level's table is the sorted unique set of strided
 coordinates, and each map is a sort-free ``torch.searchsorted`` of the offset
 keys into the sorted source table. It needs no grid extent and is the
-default of ``train.step.make_pyramid_fn``. The packed-grid builder
-(``sparse.grid.build_pyramid_grid``) gives the same tables for in-extent
-3-D inputs; 6-D pyramids are built here alone.
+default of ``train.step.make_pyramid_fn``. The port's one other builder,
+the grid builder (``sparse.grid.build_pyramid_grid``, kernel D), gives the
+same tables for in-extent 3-D inputs; 6-D pyramids are built here alone.
 """
 from __future__ import annotations
 

@@ -25,7 +25,7 @@ from imfnet_tpu_torch.config import Config
 from imfnet_tpu_torch.match.nn import nn_auto
 from imfnet_tpu_torch.parallel.mesh import Mesh, float_buffers, mean_over_ranks
 from imfnet_tpu_torch.sparse.coords import SparseVoxels, row_mask
-from imfnet_tpu_torch.sparse.grid import GRID_MAP_IMPLS, GridSpec, build_pyramid_grid
+from imfnet_tpu_torch.sparse.grid import GridSpec, build_pyramid_grid
 from imfnet_tpu_torch.sparse.kernel_map import build_pyramid
 from imfnet_tpu_torch.train.losses import (contrastive_loss, draw_shapes, draws_for,
                                            hardest_contrastive_loss, hardest_triplet_loss,
@@ -34,7 +34,7 @@ from imfnet_tpu_torch.train.state import TrainState
 from imfnet_tpu_torch.utils import timer
 from imfnet_tpu_torch.utils.graphs import jit
 
-MAP_IMPLS = ("search",) + GRID_MAP_IMPLS
+MAP_IMPLS = ("search", "banded")
 
 
 LOSS_FNS = {
@@ -82,25 +82,24 @@ def make_pyramid_fn(config: Config, n_pad: int, num_batches: int = 2,
     capacities, for coordinates of dimension ``dim`` (3, or 6: the search
     builder alone).
 
-    ``map_impl`` picks the builder; all give the same tables for
+    ``map_impl`` picks the builder; both give the same tables for
     in-extent inputs:
     - "search": sort + ``torch.searchsorted`` (``kernel_map.build_pyramid``),
       which needs no extent;
-    - a grid builder of ``grid.GRID_MAP_IMPLS`` ("banded", the compact word
-      tables through kernel D, which "auto" resolves to; "packed", "ywide",
-      "transpose", plain PyTorch over dense tables): ``grid.build_pyramid_grid``
-      in the static extent ``extent`` (default ``config.grid_extent``) for
-      ``num_batches`` batches, as the JAX package's ``use_grid``/``extent``
-      do. The pyramid has one level per entry
-    of ``config.level_capacity_divisors`` (4 by default; SimpleNet3 needs
-    5), where the JAX package always builds 4."""
+    - "banded": the compact word tables through kernel D
+      (``grid.build_pyramid_grid``) in the static extent ``extent`` (default
+      ``config.grid_extent``) for ``num_batches`` batches, as the JAX
+      package's ``use_grid``/``extent`` do.
+    The pyramid has one level per entry of
+    ``config.level_capacity_divisors`` (4 by default; SimpleNet3 needs 5),
+    where the JAX package always builds 4."""
     if map_impl not in MAP_IMPLS:
         raise ValueError(f"make_pyramid_fn: map_impl must be one of {MAP_IMPLS}, "
                          f"got {map_impl!r}")
     if dim not in (3, 6):
         raise ValueError(f"make_pyramid_fn: dim must be 3 or 6, got {dim}")
     if dim == 6 and map_impl != "search":
-        raise ValueError(f"make_pyramid_fn: the packed-grid builders are 3-D; a 6-D "
+        raise ValueError(f"make_pyramid_fn: the grid builder is 3-D; a 6-D "
                          f"pyramid takes map_impl='search', not {map_impl!r}")
     caps = level_capacities(n_pad, tuple(config.level_capacity_divisors))
     if map_impl == "search":
@@ -116,7 +115,7 @@ def make_pyramid_fn(config: Config, n_pad: int, num_batches: int = 2,
     def fn(coords, n):
         return build_pyramid_grid(coords, n, spec=spec, num_levels=len(caps),
                                   conv1_kernel_size=config.conv1_kernel_size,
-                                  level_capacity=caps, map_impl=map_impl)
+                                  level_capacity=caps)
 
     return fn
 

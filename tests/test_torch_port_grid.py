@@ -1,11 +1,13 @@
-"""Port parity, the packed-grid path: packed occupancy and compact word
-tables, packed and banded kernel maps, the plain versions of kernels C
-(sorted-run compaction) and D (word-table match), ``quantize_grid`` with
-``compact_impl="kernel"``, ``build_pyramid_grid`` and the grid path of
-``PairRegistrar``, against the JAX package on the same numpy inputs (its
-Pallas kernels in interpret mode). Every output here is an integer table and
-must be equal, except the descriptors of the last test, which run the same
-CPU ops on equal tables and must be bit-identical too."""
+"""Port parity, the packed-grid path: compact word tables, the kernel maps
+of both pyramid builders (the search builder's and the banded one's), the
+plain versions of kernels C (sorted-run compaction) and D (word-table
+match), ``quantize_grid`` with ``compact_impl="kernel"``,
+``build_pyramid_grid`` and the grid path of ``PairRegistrar``, against the
+JAX package on the same numpy inputs (its Pallas kernels in interpret
+mode; its dense "packed" map is the reference of every per-map case).
+Every output here is an integer table and must be equal, except the
+descriptors of the last test, which run the same CPU ops on equal tables
+and must be bit-identical too."""
 import functools
 
 import numpy as np
@@ -22,7 +24,8 @@ from imfnet_tpu_torch.data.synthetic import synthetic_pair
 from imfnet_tpu_torch.pipeline import PairRegistrar, bench_config
 from imfnet_tpu_torch.sparse import grid as tgrid
 from imfnet_tpu_torch.sparse.coords import PAD_COORD
-from imfnet_tpu_torch.sparse.kernel_map import build_pyramid
+from imfnet_tpu_torch.sparse.kernel_map import (build_pyramid, kernel_map_down,
+                                                kernel_map_same, kernel_map_up)
 from imfnet_tpu_torch.sparse.quant_kernel import (INVALID_KEY, sorted_compact,
                                                   sorted_compact_plain)
 from imfnet_tpu_torch.sparse.word_map_kernel import (query_group, word_match,
@@ -87,16 +90,13 @@ def _map_case(lvl, kernel, mode):
 
 
 @pytest.mark.parametrize("lvl", [0, 1, 2])
-def test_pack_level_and_compact_words_equal_jax(lvl):
-    """The dense table bit for bit; the compact table with JAX's f32 16-bit
-    halves reassembled (``_t6_to_t4``), and its counts and sorted flag."""
+def test_compact_words_equal_jax(lvl):
+    """The compact table with JAX's f32 16-bit halves reassembled
+    (``_t6_to_t4``), and its counts and sorted flag."""
     case = _map_case(lvl, 3, "same")
     args_j = (jnp.asarray(case["tab"]), jnp.asarray(case["tv"]),
               jnp.asarray(case["origins"]), SPEC_J, lvl)
     args_t = (_t(case["tab"]), _t(case["tv"]), _t(case["origins"]), SPEC_T, lvl)
-    pj, pt = jgrid.pack_level(*args_j), tgrid.pack_level(*args_t)
-    assert pt.dims == pj.dims and pt.table.dtype == torch.int32
-    np.testing.assert_array_equal(pt.table.numpy(), np.asarray(pj.table))
     wj, wt = jgrid.compact_words(*args_j), tgrid.compact_words(*args_t)
     np.testing.assert_array_equal(wt.wkeys.numpy(), np.asarray(wj.wkeys))
     np.testing.assert_array_equal(wt.payload.numpy(),
@@ -121,9 +121,11 @@ def test_fits_grid_equals_jax(extent):
     assert tgrid.fits_grid(table, n, tgrid.GridSpec(extent=(64, 64, 74)))
 
 
-@pytest.mark.parametrize("impl", ["packed", "banded"])
+@pytest.mark.parametrize("impl", ["search", "banded"])
 @pytest.mark.parametrize("lvl,kernel,mode", MAP_CASES)
 def test_offset_maps_equal_jax_packed(impl, lvl, kernel, mode):
+    """Each builder's map of one (level, kernel, mode) case against the JAX
+    package's packed map."""
     case = _map_case(lvl, kernel, mode)
     origins = _t(case["origins"])
     np.testing.assert_array_equal(
@@ -131,14 +133,17 @@ def test_offset_maps_equal_jax_packed(impl, lvl, kernel, mode):
         case["origins"])
     tab, tv = _t(case["tab"]), _t(case["tv"])
     kw = dict(table_level=lvl, kernel_size=kernel, mode=mode)
-    if impl == "packed":
-        pt = tgrid.pack_level(tab, tv, origins, SPEC_T, lvl)
-        nbr = tgrid.packed_offset_map(pt, origins, _t(case["qc"]), _t(case["qv"]),
-                                      SPEC_T, **kw)
+    qc, qv = _t(case["qc"]), _t(case["qv"])
+    if impl == "search":
+        if mode == "same":
+            nbr = kernel_map_same(tab, tv, kernel, 1 << lvl)
+        elif mode == "down":
+            nbr = kernel_map_down(tab, tv, qc, qv, kernel, 1 << lvl)
+        else:
+            nbr = kernel_map_up(tab, tv, qc, qv, kernel, 1 << (lvl - 1))
     else:
         wt = tgrid.compact_words(tab, tv, origins, SPEC_T, lvl)
-        nbr = tgrid.banded_offset_map(wt, origins, _t(case["qc"]), _t(case["qv"]),
-                                      SPEC_T, **kw)
+        nbr = tgrid.banded_offset_map(wt, origins, qc, qv, SPEC_T, **kw)
     assert nbr.dtype == torch.int32 and nbr.shape == (len(case["qc"]), kernel ** 3)
     np.testing.assert_array_equal(nbr.numpy(), case["nbr"])
     assert (nbr >= 0).sum() > 0
@@ -280,8 +285,7 @@ def test_banded_build_calls_the_grouped_entry_once(monkeypatch, conv1_kernel_siz
     pyr = tgrid.build_pyramid_grid(_t(table), torch.tensor(n, dtype=torch.int32),
                                    spec=SPEC_T, num_levels=num_levels,
                                    conv1_kernel_size=conv1_kernel_size,
-                                   level_capacity=(1024, 512, 256, 256)[:num_levels],
-                                   map_impl="banded")
+                                   level_capacity=(1024, 512, 256, 256)[:num_levels])
     assert len(calls) == 1 and len(calls[0]) == maps
     k2 = conv1_kernel_size ** 2
     assert [q.shape[1] for *_, q in calls[0]] == [k2] + [9] * (maps - 1)
@@ -289,8 +293,8 @@ def test_banded_build_calls_the_grouped_entry_once(monkeypatch, conv1_kernel_siz
                for _, _, n_words, _ in calls[0])
     assert len(pyr.levels) == num_levels
     calls.clear()
-    tgrid.build_pyramid_grid(_t(table), torch.tensor(n, dtype=torch.int32), spec=SPEC_T,
-                             level_capacity=(1024, 512, 256, 256), map_impl="packed")
+    build_pyramid(_t(table), torch.tensor(n, dtype=torch.int32),
+                  level_capacity=(1024, 512, 256, 256))
     assert calls == []
 
 
@@ -358,6 +362,8 @@ def test_quantize_grid_kernel_equals_jax_pallas(n_out):
     with pytest.raises(ValueError, match="compact_impl"):
         tgrid.quantize_grid(_t(xyz), _t(feats), _t(valid), 0.05, n_out, SPEC_T,
                             compact_impl="pallas")
+    with pytest.raises(ValueError, match="compact_impl"):
+        PairRegistrar(device="cpu", compact_impl="pallas")
 
 
 CAPS = (2048, 683, 256, 256)
@@ -382,11 +388,10 @@ def _pyramid_tables(pyr):
     return {k: np.asarray(v) for k, v in out.items()}
 
 
-@pytest.mark.parametrize("map_impl", ["packed", "banded"])
-def test_build_pyramid_grid_equals_jax_and_search(pyramid_input, map_impl):
+def test_build_pyramid_grid_equals_jax_and_search(pyramid_input):
     table, n, pyr_j = pyramid_input
     pyr_t = tgrid.build_pyramid_grid(_t(table), torch.tensor(n, dtype=torch.int32),
-                                     spec=SPEC_T, level_capacity=CAPS, map_impl=map_impl)
+                                     spec=SPEC_T, level_capacity=CAPS)
     pyr_s = build_pyramid(_t(table), torch.tensor(n, dtype=torch.int32),
                           level_capacity=CAPS)
     got, want, search = (_pyramid_tables(p) for p in (pyr_t, pyr_j, pyr_s))
@@ -405,13 +410,12 @@ def test_build_pyramid_grid_conv1_k3():
     caps = (1024, 512, 256, 256)
     want = _pyramid_tables(build_pyramid(_t(table), nv, conv1_kernel_size=3,
                                          level_capacity=caps))
-    for impl in ("packed", "banded"):
-        pyr = tgrid.build_pyramid_grid(_t(table), nv, spec=SPEC_T, conv1_kernel_size=3,
-                                       level_capacity=caps, map_impl=impl)
-        assert pyr.k5_l0 is pyr.levels[0].k3_same
-        got = _pyramid_tables(pyr)
-        for k in want:
-            np.testing.assert_array_equal(got[k], want[k], err_msg=f"{impl} {k}")
+    pyr = tgrid.build_pyramid_grid(_t(table), nv, spec=SPEC_T, conv1_kernel_size=3,
+                                   level_capacity=caps)
+    assert pyr.k5_l0 is pyr.levels[0].k3_same
+    got = _pyramid_tables(pyr)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     with pytest.raises(ValueError, match="conv1_kernel_size"):
         tgrid.build_pyramid_grid(_t(table), nv, spec=SPEC_T, conv1_kernel_size=7)
 
@@ -420,12 +424,11 @@ def test_make_pyramid_fn_grid_builders_equal_search():
     table, n = _table(np.random.RandomState(5), 2048, 0, 600)
     cfg = bench_config()
     nv = torch.tensor(n, dtype=torch.int32)
-    want, *gots = (_pyramid_tables(make_pyramid_fn(cfg, 2048, 2, extent=EXTENT,
-                                                   map_impl=impl)(_t(table), nv))
-                   for impl in ("search", "banded", "packed", "ywide"))
-    for got in gots:
-        for k in want:
-            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    want, got = (_pyramid_tables(make_pyramid_fn(cfg, 2048, 2, extent=EXTENT,
+                                                 map_impl=impl)(_t(table), nv))
+                 for impl in ("search", "banded"))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     with pytest.raises(ValueError, match="map_impl"):
         make_pyramid_fn(cfg, 2048, map_impl="dense")
 
@@ -438,7 +441,7 @@ def test_unsorted_word_table_raises():
     flipped = wt._replace(wkeys=wt.wkeys.flip(0).contiguous(),
                           sorted_ok=(wt.wkeys.flip(0)[1:] >= wt.wkeys.flip(0)[:-1]).all())
     with pytest.raises(RuntimeError, match="not sorted"):
-        tgrid.banded_word_t4(flipped, q)
+        tgrid.banded_word_t4_many([(flipped, q)])
     # a level table out of scan order gives an unsorted word table
     n = int(tv.sum())
     shuffled = tab.clone()
