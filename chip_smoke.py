@@ -5,7 +5,7 @@
 
 Phases, each printed as one JSON line:
   device    nvidia-smi's name and power limit, torch and CUDA versions
-  build     the four CUDA kernels built from imfnet_tpu_torch/csrc (nvcc,
+  build     the five CUDA kernels built from imfnet_tpu_torch/csrc (nvcc,
             one process each, in parallel), with seconds and the
             compiler's register report, and the spills of each of kernel
             A's tensor-core instances (reported; there should be none)
@@ -58,7 +58,13 @@ Phases, each printed as one JSON line:
             on a KITTI-sized pair (67 000 voxels a side, 30 % of the
             descriptors matching): ms and pairs/s of the graphed chain and
             its launches a pair, counted alone (kernel A 20 in the wide-K
-            variant tcw and 1 cin1, kernel B 1, asserted); then, on that
+            variant tcw and 1 cin1, kernel B 1, kernel E 1, asserted); then
+            the pyramid's ten 6-D maps (dgr_maps) from that pair's level
+            tables: kernel E (sparse/map6_kernel.py) against its plain
+            version, the chunked searchsorted chain, and against the
+            registrar's own maps, bit for bit; both graph-timed, the whole
+            pyramid (tables and maps) too, the bound (maps written, keys
+            read) and the tally's probes a query; then, on that
             pair's own 6-D pyramid, kernel A at each distinct k3 conv of the
             network (729 offsets, tcw asserted) and at conv1 (cin 1, k 729,
             cin1 asserted) against the plain version over blocks of rows
@@ -370,8 +376,10 @@ from imfnet_tpu_torch.sparse.conv_kernel import (SCALAR_TILE, TC_TILES, ConvPlan
 from imfnet_tpu_torch.sparse.conv_kernel import run_plan as conv_run_plan
 from imfnet_tpu_torch.sparse.grid import (GridSpec, cell_keys, compact_words, level_tables,
                                           quantize_grid, word_queries)
+from imfnet_tpu_torch.sparse import kernel_map
 from imfnet_tpu_torch.sparse.kernel_map import coarse_levels_fit
-from imfnet_tpu_torch.sparse.coords import quantize, row_mask
+from imfnet_tpu_torch.sparse.map6_kernel import map6_many
+from imfnet_tpu_torch.sparse.coords import make_keys, quantize, row_mask
 from imfnet_tpu_torch.sparse.ops import weight_grad
 from imfnet_tpu_torch.sparse.quant_kernel import sorted_compact, sorted_compact_plain
 # the H100's peaks (NVIDIA data sheet, used for bounds only) and kernel A's
@@ -445,7 +453,7 @@ DEFAULT_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
 PORT_CUDA_KERNELS = ("gather_gemm_tc", "gather_gemm_tcw", "gather_gemm_cin1",
                      "gather_gemm_kernel", "nn_transpose_kernel", "nn_transpose_any_kernel", "flash_nn_kernel",
                      "flash_nn3_kernel", "flash_nnk_kernel", "compact_single_pass",
-                     "word_match_kernel")
+                     "word_match_kernel", "map6_insert", "map6_probe")
 GRID_LAUNCHES = {"sparse_conv_gather_gemm": 20, "flash_nn": 2,
                  "sorted_compact": 1, "word_match": 1,
                  "sparse_conv_gather_gemm.tc": 20,
@@ -606,7 +614,7 @@ def tc_spills(ptxas):
 def phase_build():
     t0 = time.perf_counter()
     report = cuda_build.build(["sparse_conv", "flash_nn", "sorted_compact",
-                               "word_match"])
+                               "word_match", "map6"])
     regs = {name: [ln.split("info    : ")[-1] for ln in r["ptxas"].splitlines()
                    if "registers" in ln or "spill" in ln]
             for name, r in report.items()}
@@ -4212,6 +4220,7 @@ DGR_LAUNCHES = {"sparse_conv_gather_gemm": 21, "flash_nn": 1, "sorted_compact": 
                 "sparse_conv_gather_gemm.cin1": 1, "sparse_conv_gather_gemm.scalar": 0,
                 "sparse_conv_gather_gemm.tcw": 20}
 DGR_VOXELS, DGR_INLIERS, DGR_PAIRS = 67_000, 0.3, 5
+DGR_MAP6_LAUNCHES = 1    # kernel E: the pyramid's ten maps in one call
 DGR_PLAIN_ROWS = 2048    # the plain version's rows a block: [2048, 729 * cin] f32 at most 1.5 GB
 
 
@@ -4316,6 +4325,75 @@ def dgr_conv_entry(name, x, nbr, w, plan):
     return entry
 
 
+def dgr_maps_entry(sv, pyr):
+    """Kernel E at the registrar's own pyramid: its ten maps rebuilt from
+    the level tables in one call against the plain chain's and against the
+    registrar's, bit for bit; both graph-timed (kernel E alone on the
+    tables' keys, with the keys made, and the whole pyramid from the level-0
+    table), its bound (the maps written and the keys read at 3.35 TB/s) and
+    the tally's probes a query. Emits the dgr_maps line."""
+    tables = [(lv.coords, row_mask(lv.coords.shape[0], lv.num_valid)) for lv in pyr.levels]
+    unit = kernel_map.offsets_on(3, 1, "cuda", 6)
+    problems, names = [], []
+    for i in range(len(tables)):
+        for name, src, scale in (("k3_same", i, 2 ** i), ("down", i - 1, 2 ** i // 2),
+                                 ("up", i + 1, 2 ** i)):
+            if 0 <= src < len(tables):
+                problems.append((i, src, unit, scale))
+                names.append((name, i))
+    before = map6_many.launches
+    timer.reset()
+    with timer.tracing():
+        got = kernel_map.offset_maps6(tables, problems)
+        tally = timer.record()["counters"]
+    timer.reset()
+    if map6_many.launches != before + 1:
+        raise AssertionError("dgr_maps: the ten maps took more than one call of kernel E")
+    differ = {}
+    for (name, i), (o, src, _, scale), m in zip(names, problems, got):
+        plain = kernel_map.offset_map6_plain(*tables[o], *tables[src], unit * scale)
+        differ[f"{name}.{i}"] = [int((m != plain).sum()),
+                                 int((m != getattr(pyr.levels[i], name)).sum())]
+        del plain
+    if any(a or b for a, b in differ.values()):
+        raise AssertionError(f"dgr_maps: entries differing from the plain chain and from "
+                             f"the registrar's maps {differ}")
+    del got
+    torch.cuda.empty_cache()
+    keys = [make_keys(c, v, is_table=True) for c, v in tables]
+    deltas = kernel_map.key_deltas(unit)
+    bare = [(o, src, deltas, scale) for o, src, _, scale in problems]
+    n_pad = sv.coords.shape[0]
+    caps = tuple(c.shape[0] for c, _ in tables)
+    entries = sum(tables[o][0].shape[0] * unit.shape[0] for o, *_ in problems)
+    nbytes = 4 * entries + 8 * (sum(tables[o][0].shape[0] for o, *_ in problems)
+                                + sum(c.shape[0] for c, _ in tables))
+    entry = {"maps": len(problems), "entries": entries, "rows_valid":
+             [int(lv.num_valid) for lv in pyr.levels], "differ": differ,
+             "queries": tally["map6.queries"], "probes": tally["map6.probes"],
+             "probes_per_query": tally["map6.probes"] / max(1, tally["map6.queries"]),
+             "live_share": sum(int((getattr(pyr.levels[i], n) >= 0).sum()) for n, i in names)
+             / entries,
+             "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES * 1e3}
+    kernel_ms, keys_ms, plain_ms = [], [], []
+    for _ in range(3):     # in turns, so that a drift of the card's clock falls on each
+        kernel_ms.append(graph_ms(lambda: map6_many(keys, bare), 3))
+        keys_ms.append(graph_ms(lambda: kernel_map.offset_maps6(tables, problems), 3))
+        plain_ms.append(graph_ms(lambda: [kernel_map.offset_map6_plain(
+            *tables[o], *tables[src], unit * scale) for o, src, _, scale in problems], 1))
+        torch.cuda.empty_cache()
+    entry.update({"ms": float(np.median(kernel_ms)), "ms_with_keys": float(np.median(keys_ms)),
+                  "plain_ms": float(np.median(plain_ms)),
+                  "ms_turns": [kernel_ms, keys_ms, plain_ms],
+                  "pyramid_ms": graph_ms(lambda: kernel_map.build_pyramid(
+                      sv.coords, sv.num_valid, conv1_kernel_size=3, level_capacity=caps), 3),
+                  "n_pad": n_pad})
+    entry["roofline_share"] = entry["bound_ms"] / entry["ms"]
+    torch.cuda.empty_cache()
+    emit({"phase": "dgr_maps", **entry})
+    return entry
+
+
 def phase_dgr(gen):
     """DGR's registrar on the card at the cell's size: the graphed chain's
     pairs/s and launches a pair (counts zeroed before the timed pairs:
@@ -4331,6 +4409,7 @@ def phase_dgr(gen):
         reg(*pair)
     torch.cuda.synchronize()
     reset_counts()
+    map6_before = map6_many.launches
     t0 = time.perf_counter()
     for _ in range(DGR_PAIRS):
         out = reg(*pair)
@@ -4338,9 +4417,14 @@ def phase_dgr(gen):
     launches = {k: v / DGR_PAIRS for k, v in read_counts().items()}
     if launches != DGR_LAUNCHES:
         raise AssertionError(f"dgr: launches a pair {launches}, want {DGR_LAUNCHES}")
+    launches["map6"] = (map6_many.launches - map6_before) / DGR_PAIRS
+    if launches["map6"] != DGR_MAP6_LAUNCHES:
+        raise AssertionError(f"dgr: kernel E launched {launches['map6']} times a pair, "
+                             f"want {DGR_MAP6_LAUNCHES}")
     sv, pyr = seen[-1][0], seen[-1][1]  # the capture's buffers, as the last replay left them
     levels = [int(lv.num_valid) for lv in pyr.levels]
     del reg, seen
+    maps = dgr_maps_entry(sv, pyr)
     entries, done, inputs = [], {}, {}
     for name, level, which, cin, cout in MAIN_PATH_CONVS:
         key = (level, which, cin, cout)
@@ -4411,6 +4495,9 @@ def phase_dgr(gen):
                "dgr_tcw_entries_live": total("nnz"),
                "dgr_conv1_ms": conv1["ms"], "dgr_conv1_bound_ms": conv1["bound_ms"],
                "dgr_conv1_tile": [plan.bm, plan.bn]}
+    summary.update({"dgr_maps_ms": maps["ms"], "dgr_maps_bound_ms": maps["bound_ms"],
+                    "dgr_maps_plain_ms": maps["plain_ms"],
+                    "dgr_maps_probes_per_query": maps["probes_per_query"]})
     emit({"phase": "dgr", "voxels": DGR_VOXELS, "rows_valid": levels,
           "ms_per_pair": seconds * 1e3, "pairs_per_s": 1.0 / seconds,
           "launches_per_pair": launches, "wsum": float(out["wsum"]), **summary})

@@ -17,7 +17,11 @@ it runs, in one CUDA graph on the card (``utils.graphs.jit``):
    is one (``inlier_feature_type`` ones);
 3. ``dgr.pyramid``: the 6-D coordinate pyramid (the search builder at
    every level's capacity, ``train.step.make_pyramid_fn(dim=6)``: 729
-   offsets a k3 map, conv1 k3 sharing level 0's map);
+   offsets a k3 map, conv1 k3 sharing level 0's map). Its ten maps come
+   from kernel E on the card (``sparse.map6_kernel.map6_many``: one hash
+   a level table, every map in one launch); its plain version, on the
+   CPU, is the chunked ``searchsorted`` chain
+   (``sparse.kernel_map.offset_map6_plain``);
 4. ``dgr.inlier``: ``ResUNetBN2C`` at D = 6 with one output logit and no
    feature normalization, its 20 k3 convs through kernel A's wide-K
    walk (a residual block's two convs sharing one list build), conv1
@@ -34,7 +38,9 @@ While tracing (``utils.timer``), the span ``dgr.pad`` holds a call's host
 work before the graph (both scans padded, pinned and copied to the card),
 the graph's stages are the five above and
 its device counters ``dgr.corr_valid`` (correspondences) and ``dgr.rows_valid.
-<level>`` (the pyramid's valid rows a level); kernel A's wide-K launches
+<level>`` (the pyramid's valid rows a level); kernel E adds ``map6.queries``
+and ``map6.probes`` (the map entries it probed and the hash buckets they
+read); kernel A's wide-K launches
 add ``conv.slots_walked``, ``conv.entries_live``, ``conv.entries_waited``
 and ``conv.map_slots`` (the live entries of the 6-D maps they read, over
 the rows their products cover and over N × 729 a map; ``sparse.conv_kernel``).

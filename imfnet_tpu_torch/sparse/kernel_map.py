@@ -9,8 +9,12 @@ row and kernel offset, the input row or -1. Offsets enumerate in
 
 This module holds the search builder (``imfnet_tpu.sparse.kernel_map
 .build_pyramid``): each level's table is the sorted unique set of strided
-coordinates, and each map is a sort-free ``torch.searchsorted`` of the offset
-keys into the sorted source table. It needs no grid extent and is the
+coordinates. A 3-D map is a sort-free ``torch.searchsorted`` of the offset
+keys into the sorted source table (``coords.lookup``). A 6-D map comes, on
+the card, from kernel E (``sparse.map6_kernel.map6_many``: one hash a level
+table, every map of a pyramid written in one launch); its plain version,
+for CPU tensors and the tests' oracle, is ``offset_map6_plain``, the same
+search in chunks of offsets. The builder needs no grid extent and is the
 default of ``train.step.make_pyramid_fn``. The port's one other builder,
 the grid builder (``sparse.grid.build_pyramid_grid``, kernel D), gives the
 same tables for in-extent 3-D inputs; 6-D pyramids are built here alone.
@@ -18,7 +22,7 @@ same tables for in-extent 3-D inputs; 6-D pyramids are built here alone.
 from __future__ import annotations
 
 import itertools
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +30,7 @@ import torch
 from imfnet_tpu_torch.sparse.coords import (KEY6_BITS, KEY6_MARGIN, PAD_QUERY_KEY,
                                             coord_dim, lookup, make_keys, row_mask,
                                             stride_coords)
+from imfnet_tpu_torch.sparse.map6_kernel import map6_many
 
 # query keys one chunk of a 6-D map holds at most (int64 each; the chunk's
 # temporaries are a few such tensors: about 40 bytes an entry, 0.7 GB)
@@ -55,8 +60,8 @@ def offset_map(out_coords: torch.Tensor, out_valid: torch.Tensor,
                offsets) -> torch.Tensor:
     """nbr[N_out, K]: the row of ``out + offset`` in the input table, or -1.
     The input table's valid rows must be sorted by key. ``offsets`` is an
-    int[K,D] array, or a tensor on the coordinates' device. 6-D maps are
-    built in chunks of offsets (``offset_map6``)."""
+    int[K,D] array, or a tensor on the coordinates' device. 6-D maps go to
+    ``offset_map6``."""
     if coord_dim(out_coords) == 6:
         return offset_map6(out_coords, out_valid, in_coords, in_valid,
                            torch.as_tensor(offsets, dtype=torch.int32,
@@ -72,13 +77,57 @@ def offset_map(out_coords: torch.Tensor, out_valid: torch.Tensor,
     return lookup(table, keys).reshape(out_coords.shape[0], len(offsets))
 
 
+def key_deltas(offsets: torch.Tensor) -> torch.Tensor:
+    """int64[K]: each 6-D offset's key delta, ``Σ_a o_a << 10 (5 - a)``. An
+    offset of at most ``KEY6_MARGIN`` a axis moves an in-range row's key
+    fields without a borrow or carry (``coords.in_key_range``), so a
+    query's key is its row's key plus its offset's delta; a delta scales
+    with its offset."""
+    o = offsets.to(torch.int64)
+    delta = o[:, 0]
+    for a in range(1, 6):
+        delta = (delta << KEY6_BITS) + o[:, a]
+    return delta
+
+
 def offset_map6(out_coords: torch.Tensor, out_valid: torch.Tensor,
                 in_coords: torch.Tensor, in_valid: torch.Tensor,
                 offsets: torch.Tensor) -> torch.Tensor:
-    """``offset_map`` of 6-D coordinates, in chunks of offsets. A query's
-    key is its row's key plus its offset's, ``Σ_a o_a << 10 (5 - a)``:
-    an offset of at most ``KEY6_MARGIN`` a axis moves an in-range row's
-    fields without a borrow or carry (``coords.in_key_range``), and a row
+    """``offset_map`` of 6-D coordinates: ``offset_maps6`` for one map."""
+    return offset_maps6([(out_coords, out_valid), (in_coords, in_valid)],
+                        [(0, 1, offsets, 1)])[0]
+
+
+# (out table, in table, offsets int32[K, 6], scale): the map of the offsets
+# times scale, from the out table's rows into the in table
+Map6 = Tuple[int, int, torch.Tensor, int]
+
+
+def offset_maps6(tables: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                 problems: Sequence[Map6]) -> List[torch.Tensor]:
+    """The 6-D map of each ``(out, in, offsets, scale)`` over ``tables``
+    (coords, valid): nbr[N_out, K], the row of ``out + scale * offset`` in
+    the in table, or -1. Each table's valid rows must be sorted by key. On
+    the card kernel E builds them all in one call (``map6_many``: each
+    searched table hashed once); CPU tensors take ``offset_map6_plain`` a
+    map. The scaled offsets must stay within ``KEY6_MARGIN`` a axis."""
+    if tables[0][0].device.type == "cpu":
+        return [offset_map6_plain(*tables[o], *tables[i], offs * scale)
+                for o, i, offs, scale in problems]
+    keys = [make_keys(c, v, is_table=True) for c, v in tables]
+    deltas = {}
+    for _, _, offs, _ in problems:
+        if id(offs) not in deltas:
+            deltas[id(offs)] = key_deltas(offs)
+    return map6_many(keys, [(o, i, deltas[id(offs)], scale) for o, i, offs, scale in problems])
+
+
+def offset_map6_plain(out_coords: torch.Tensor, out_valid: torch.Tensor,
+                      in_coords: torch.Tensor, in_valid: torch.Tensor,
+                      offsets: torch.Tensor) -> torch.Tensor:
+    """Kernel E's plain version, a 6-D map by search in chunks of offsets:
+    each query key, its row's key plus its offset's (``key_deltas``), is
+    ``torch.searchsorted`` in the sorted table (``coords.lookup``); a row
     out of range or invalid keeps ``PAD_QUERY_KEY`` and misses. At most
     ``MAP_CHUNK_ENTRIES`` query keys are held at a time: the temporaries
     are about 40 bytes a chunk entry (the int64 keys, the search's int64
@@ -89,10 +138,7 @@ def offset_map6(out_coords: torch.Tensor, out_valid: torch.Tensor,
     table = make_keys(in_coords, in_valid, is_table=True)
     rows = make_keys(out_coords, out_valid, is_table=False)[:, None]
     miss = rows == PAD_QUERY_KEY
-    o = offsets.to(torch.int64)
-    delta = o[:, 0]
-    for a in range(1, 6):
-        delta = (delta << KEY6_BITS) + o[:, a]
+    delta = key_deltas(offsets)
     nbr = torch.empty((n_out, k), dtype=torch.int32, device=out_coords.device)
     chunk = max(1, min(k, MAP_CHUNK_ENTRIES // max(n_out, 1)))
     for k0 in range(0, k, chunk):
@@ -193,6 +239,9 @@ def build_pyramid(
     def offs(k, s):
         return offsets_on(k, s, dev, dim)
 
+    if dim == 6:
+        return _pyramid6(tables, valid, conv1_kernel_size, offs(3, 1))
+
     levels = []
     for i in range(num_levels):
         c, n = tables[i]
@@ -208,7 +257,32 @@ def build_pyramid(
         levels.append(LevelMaps(c, n, same, down, up))
 
     c0 = tables[0][0]
-    if dim == 6 and conv1_kernel_size == 3:
-        return CoordinatePyramid(tuple(levels), levels[0].k3_same)
     k5 = offset_map(c0, valid[0], c0, valid[0], offs(conv1_kernel_size, 1))
     return CoordinatePyramid(tuple(levels), k5)
+
+
+def _pyramid6(tables, valid, conv1_kernel_size: int, unit: torch.Tensor) -> CoordinatePyramid:
+    """A 6-D pyramid's maps in one ``offset_maps6`` call: each level's same
+    map, down map (from the finer level, offsets at half its stride) and up
+    map (from the coarser), all at the k3 offsets ``unit`` times a stride;
+    conv1 k3 shares level 0's map, another conv1 adds its own."""
+    n = len(tables)
+    problems, at = [], {}
+    for i in range(n):
+        for name, src, scale in (("same", i, 2 ** i), ("down", i - 1, 2 ** i // 2),
+                                 ("up", i + 1, 2 ** i)):
+            if 0 <= src < n:
+                at[name, i] = len(problems)
+                problems.append((i, src, unit, scale))
+    if conv1_kernel_size != 3:
+        at["conv1", 0] = len(problems)
+        problems.append((0, 0, offsets_on(conv1_kernel_size, 1, unit.device, 6), 1))
+    maps = offset_maps6([(c, v) for (c, _), v in zip(tables, valid)], problems)
+
+    def get(name, i):
+        return maps[at[name, i]] if (name, i) in at else None
+
+    levels = tuple(LevelMaps(c, num, get("same", i), get("down", i), get("up", i))
+                   for i, (c, num) in enumerate(tables))
+    return CoordinatePyramid(levels, get("conv1", 0) if conv1_kernel_size != 3
+                             else levels[0].k3_same)

@@ -67,12 +67,14 @@ def kernel_counters() -> Tuple[launches.Counter, ...]:
     this module for ICP.)"""
     from imfnet_tpu_torch.match.nn_kernel import flash_nn
     from imfnet_tpu_torch.sparse.conv_kernel import gather_gemm
+    from imfnet_tpu_torch.sparse.map6_kernel import map6_many
     from imfnet_tpu_torch.sparse.quant_kernel import sorted_compact
     from imfnet_tpu_torch.sparse.word_map_kernel import word_match_many
     return ((gather_gemm, "launches"), (gather_gemm, "launches_tc"),
             (gather_gemm, "launches_cin1"), (gather_gemm, "launches_scalar"),
             (flash_nn, "launches"), (sorted_compact, "launches"),
-            (word_match_many, "launches"), (gather_gemm, "launches_tcw"))
+            (word_match_many, "launches"), (gather_gemm, "launches_tcw"),
+            (map6_many, "launches"))
 
 
 def _read_counters() -> Tuple[int, ...]:
